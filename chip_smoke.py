@@ -10,18 +10,31 @@ prints no result line):
   1. build: nvcc compiles every remixfusion_tpu_torch/csrc/*.cu (one process
      per source, started together) into build/kernels/; the ptxas register /
      shared-memory lines are printed;
-  2. slice: configs/Synthetic/synthetic_bench.yaml at full width (640x480,
-     PST tiers 10240/3072/1024, 20 particle iterations, 300^3 volume at 2 cm
-     in 10^3 bricks) through RemixFusionTorch.run for the first N_FRAMES
-     frames (the one cut). Kernel launch counts are zeroed just before and
-     read just after; brick_eval must have launched 20 times per tracked
-     frame, and the RO-only ATE must stay below 2 cm;
-  3. kernels: brick_eval against its plain PyTorch version on the card, on
-     the tier inputs (windows and vertices) of the slice's last frame, at
-     the three main-path shapes and in both interpolation modes, with the
-     parity tests' tolerance (max |d| < 5e-3, mean < 1e-4, same 1e6-guard
+  2. slice A: configs/Synthetic/synthetic_bench.yaml (CPGrid residual field)
+     at full width (640x480, PST tiers 10240/3072/1024, 20 particle
+     iterations, 300^3 local volume at 2 cm in 10^3 bricks, 200^3 global
+     grid, 2048-ray map batches) through RemixFusionTorch.run for the first
+     N_FRAMES frames (the one cut): first-frame mapping, tracking, a mapping
+     round every 5 frames. Kernel launch counts are zeroed just before and
+     read just after: brick_eval launched 20 times per tracked frame,
+     hash_table_grad never; RO-only and full ATE below 2 cm;
+  3. kernel brick_eval against its plain PyTorch version on the card, on
+     the tier inputs (windows and vertices) of slice A's last frame, at the
+     three main-path shapes and in both interpolation modes, with the parity
+     tests' tolerance (max |d| < 5e-3, mean < 1e-4, same 1e6-guard
      positions); kernel and plain version timed with CUDA events;
-  4. the kernels JSON line; 5. the card's name and power limit; and last
+  4. slice B: configs/Synthetic/bench_hashgrid.yaml (HashGrid residual
+     field, 16 levels, 2^16 hashed) the same way: brick_eval launched 20
+     times per tracked frame, hash_table_grad twice per map iteration (the
+     render points' and the smoothness points' backward), full ATE below 2
+     cm, the first-frame map loss falling and every parameter finite;
+  5. kernel hash_table_grad against its plain version on the card, on the
+     points and output gradients of slice B's last map step (render and
+     smoothness shapes): max |d| <= 1e-5 * max |plain| (atomics reorder
+     float32 sums) and rows no point touched exactly zero in both; kernel,
+     plain version and index_add_ on precomputed rows (the library
+     yardstick, used nowhere in the port) timed with CUDA events;
+  6. the kernels JSON line; 7. the card's name and power limit; and last
      the {"ok": true, ...} line.
 """
 
@@ -32,10 +45,14 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CONFIG = os.path.join(ROOT, "configs", "Synthetic", "synthetic_bench.yaml")
+CONFIGS = {"A": os.path.join(ROOT, "configs", "Synthetic",
+                             "synthetic_bench.yaml"),
+           "B": os.path.join(ROOT, "configs", "Synthetic",
+                             "bench_hashgrid.yaml")}
 N_FRAMES = 60
 ATE_BAR_CM = 2.0
 TOL_MAX, TOL_MEAN = 5e-3, 1e-4
+HASH_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -91,38 +108,68 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
 
-def phase_slice(torch):
+def phase_slice(torch, label, capture=None):
+    """Drive slice `label` through RemixFusionTorch.run with every kernel's
+    launch count zeroed just before and read just after."""
+    import numpy as np
+
     from remixfusion_tpu_torch.config import load_config
     from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.ops import hash_enc as he
     from remixfusion_tpu_torch.slam import RemixFusionTorch
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(CONFIGS[label])
     cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke")
     t0 = time.time()
     slam = RemixFusionTorch(cfg, device="cuda")
     slam.preload(N_FRAMES + 1)
-    print(f"[slice] set-up (seed fusion, {N_FRAMES + 1} frames rendered) "
+    print(f"[slice {label}] {os.path.relpath(CONFIGS[label], ROOT)}: set-up "
+          f"(seed fusion, {N_FRAMES + 1} frames rendered) "
           f"{time.time() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     be.brick_eval.launches = 0
+    he.hash_table_grad.launches = 0
     out = slam.run(max_frames=N_FRAMES)
-    launches = be.brick_eval.launches
-    iters = int(cfg["RO"]["particle_iter_lens"])
+    launches = {"brick_eval": be.brick_eval.launches,
+                "hash_table_grad": he.hash_table_grad.launches}
     peak = torch.cuda.max_memory_allocated()
-    print(f"[slice] frames={out['frames']} tracked={out['tracked_frames']} "
-          f"ms_per_frame={out['ms_per_frame']} "
-          f"(host clock over {out['timed_frames']} frames, ending in "
-          f"torch.cuda.synchronize) ate_rmse_cm_ro_only="
-          f"{out['ate_rmse_cm_ro_only']} brick_eval.launches={launches} "
-          f"max_memory_allocated={peak}", flush=True)
-    if launches != iters * out["tracked_frames"]:
-        fail(f"brick_eval launched {launches} times, expected "
-             f"{iters * out['tracked_frames']}")
-    if not out["ate_rmse_cm_ro_only"] < ATE_BAR_CM:
-        fail(f"RO-only ATE {out['ate_rmse_cm_ro_only']} cm >= {ATE_BAR_CM}")
-    import numpy as np
-    if not np.isfinite(slam.RO_c2w_data[:out["frames"]]).all():
-        fail("non-finite tracked pose")
+    iters = int(cfg["RO"]["particle_iter_lens"])
+    ffl = slam.first_frame_losses
+    print(f"[slice {label}] frames={out['frames']} tracked="
+          f"{out['tracked_frames']} ms_per_frame={out['ms_per_frame']} "
+          f"(host clock over {out['timed_frames']} frames with "
+          f"{out['timed_rounds']} mapping rounds, ending in "
+          f"torch.cuda.synchronize) ms_per_round={out['ms_per_round']} "
+          f"rounds={out['mapping_rounds']} first_frame_mapping_ms="
+          f"{out['first_frame_mapping_ms']} ate_rmse_cm={out['ate_rmse_cm']} "
+          f"ate_rmse_cm_ro_only={out['ate_rmse_cm_ro_only']} "
+          f"map_iters={out['map_iters']} ba_iters={out['ba_iters']} "
+          f"launches={launches} max_memory_allocated={peak}", flush=True)
+    print(f"[slice {label}] first-frame map loss every 25 iterations: "
+          f"{[float(v) for v in ffl[::25]]} last {float(ffl[-1])}",
+          flush=True)
+    if launches["brick_eval"] != iters * out["tracked_frames"]:
+        fail(f"slice {label}: brick_eval launched {launches['brick_eval']} "
+             f"times, expected {iters * out['tracked_frames']}")
+    want = 2 * out["map_iters"] if label == "B" else 0
+    if launches["hash_table_grad"] != want:
+        fail(f"slice {label}: hash_table_grad launched "
+             f"{launches['hash_table_grad']} times, expected {want}")
+    for key in ("ate_rmse_cm_ro_only", "ate_rmse_cm"):
+        if not out[key] < ATE_BAR_CM:
+            fail(f"slice {label}: {key} {out[key]} cm >= {ATE_BAR_CM}")
+    if not out["mapping_rounds"] > 0:
+        fail(f"slice {label}: no mapping round ran")
+    if not ffl[-1] < ffl[0]:
+        fail(f"slice {label}: first-frame map loss did not fall "
+             f"({ffl[0]} -> {ffl[-1]})")
+    n = out["frames"]
+    if not (np.isfinite(slam.RO_c2w_data[:n]).all()
+            and np.isfinite(slam.trajectory(n)).all()):
+        fail(f"slice {label}: non-finite pose")
+    if not all(bool(torch.isfinite(p).all())
+               for p in slam.scene.parameters()):
+        fail(f"slice {label}: non-finite scene parameter")
     return slam, out, launches
 
 
@@ -197,6 +244,87 @@ def phase_kernels(torch, slam, frames):
     }
 
 
+def touched_rows(he, enc, x, n_rows):
+    """Rows of the table the points x reach (any corner, any level), and
+    the concatenated rows of all corners in the kernel's contribution
+    order (for the index_add_ yardstick)."""
+    import torch
+
+    corner, frac = he.positions(enc, x)
+    rows, weights = [], []
+    for row, w, _ in he.corners(enc, corner, frac):
+        rows.append(row)
+        weights.append(w)
+    mask = torch.zeros(n_rows, dtype=torch.bool, device=x.device)
+    idx = torch.stack(rows, 1).reshape(-1)
+    mask[idx] = True
+    return mask, idx, torch.stack(weights, 1)
+
+
+def phase_hash_kernel(torch, captured):
+    """hash_table_grad against its plain version at the shapes of slice B's
+    last map step: the render points' backward and the smoothness points'."""
+    from remixfusion_tpu_torch.ops import hash_enc as he
+
+    if len(captured) != 2:
+        fail(f"captured {len(captured)} hash_table_grad calls, expected 2")
+    shapes = []
+    for enc, x, g, n_rows in captured:
+        n, L = x.shape[0], enc.n_levels
+        got = he.hash_table_grad(enc, x, g, n_rows)
+        ref = he.hash_table_grad_reference(enc, x, g, n_rows)
+        torch.cuda.synchronize()
+        mask, idx, w = touched_rows(he, enc, x, n_rows)
+        if bool((got[~mask] != 0).any()) or bool((ref[~mask] != 0).any()):
+            fail(f"hash_table_grad: an untouched row is not zero (N={n})")
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        if not err <= HASH_TOL * scale:
+            fail(f"hash_table_grad disagrees with its plain version at N={n}"
+                 f": max |d| {err} > {HASH_TOL} * {scale}")
+        vals = (w[..., None] * g.reshape(n, 1, L, 2)).reshape(-1, 2)
+
+        def library():
+            return torch.zeros((n_rows, 2), device=x.device).index_add_(
+                0, idx, vals)
+
+        lib_err = float((library() - ref).abs().max())
+        k_ms = time_cuda(torch, lambda: he.hash_table_grad(
+            enc, x, g, n_rows), 50, 5)
+        p_ms = time_cuda(torch, lambda: he.hash_table_grad_reference(
+            enc, x, g, n_rows), 10, 2)
+        l_ms = time_cuda(torch, library, 50, 5)
+        # bytes: x and grad_out read once, the table gradient written once;
+        # operations: ~34 FP32 per (point, level) for positions and
+        # weights, 4 per corner for its weight and float2 contribution
+        nbytes = 4 * (n * 3 + n * L * 2) + 4 * n_rows * 2
+        ops = n * L * (34 + 8 * 4)
+        t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        shapes.append({
+            "N": n, "levels": L, "rows": n_rows, "ms": k_ms,
+            "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err, "max_abs_ref": scale,
+            "library_max_abs_err": lib_err,
+            "rows_touched": int(mask.sum()), "atomics_float2": n * L * 8})
+        print(f"[kernel] hash_table_grad N={n} L={L} rows={n_rows}: "
+              f"max|d|={err:.3e} (max|ref| {scale:.3e}) kernel {k_ms:.4f} "
+              f"ms, plain {p_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
+              f"{max(t_ops, t_bytes):.4f} ms ({n * L * 8} float2 atomics, "
+              f"{int(mask.sum())} rows touched)", flush=True)
+    mean = lambda k: sum(s[k] for s in shapes) / len(shapes)  # noqa: E731
+    return {
+        "name": "hash_table_grad", "route": "cuda",
+        "source": "remixfusion_tpu_torch/csrc/hash_enc.cu",
+        "replaces": "remixfusion_tpu/ops/pallas/hash_enc.py:139",
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"), "bound_by": shapes[0]["bound_by"],
+        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "library_ms": mean("library_ms"), "shapes": shapes,
+    }
+
+
 def main():
     import torch
 
@@ -208,11 +336,38 @@ def main():
               "remixfusion_tpu_torch package is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from collections import deque
+
+    from remixfusion_tpu_torch.ops import hash_enc as he
+
     phase_build()
-    slam, out, launches = phase_slice(torch)
-    entry = phase_kernels(torch, slam, out["frames"])
-    entry["launches"] = launches
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    slam, out_a, launches_a = phase_slice(torch, "A")
+    brick = phase_kernels(torch, slam, out_a["frames"])
+    del slam
+    torch.cuda.empty_cache()
+
+    # keep the inputs of the last two table-gradient calls of slice B (its
+    # last map step: render points, then smoothness points)
+    captured = deque(maxlen=2)
+    kernel = he.hash_table_grad
+
+    def capture(enc, x, g, n_rows):
+        captured.append((enc, x, g, n_rows))
+        return kernel(enc, x, g, n_rows)
+
+    he.hash_table_grad = capture
+    try:
+        slam, out_b, launches_b = phase_slice(torch, "B")
+    finally:
+        he.hash_table_grad = kernel
+    hashk = phase_hash_kernel(torch, list(captured))
+    brick["launches"] = launches_a["brick_eval"]
+    brick["launches_by_slice"] = {"A": launches_a["brick_eval"],
+                                  "B": launches_b["brick_eval"]}
+    hashk["launches"] = launches_b["hash_table_grad"]
+    hashk["launches_by_slice"] = {"A": launches_a["hash_table_grad"],
+                                  "B": launches_b["hash_table_grad"]}
+    print(json.dumps({"kernels": [brick, hashk]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

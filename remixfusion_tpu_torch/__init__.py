@@ -5,10 +5,15 @@ beside it as the reference each module is held against. This package never
 imports JAX nor anything of `remixfusion_tpu`: it keeps its own copies of
 the numpy-only pieces it needs.
 
-Present slice: the online tracking + local TSDF fusion loop (ROTracker with
-the hand-written `brick_eval` CUDA kernel, the brick-major moving volume,
-host brick selection and re-centering) and its RO-only ATE. Mapping, bundle
-adjustment and mesh extraction come in later slices.
+Present slices: the online SLAM loop of RemixFusionTorch —
+  - tracking + local TSDF fusion (ROTracker with the hand-written
+    `brick_eval` CUDA kernel, the brick-major moving volume, host brick
+    selection and re-centering);
+  - the mapping rounds: global keyframe grid, residual field (CPGrid, or
+    HashGrid with the hand-written `hash_table_grad` CUDA kernel) and
+    decoders, RBA bundle adjustment, the one-round-late pose write-back;
+  - the final trajectory and its full and RO-only ATE.
+Mesh extraction, resume state and the real-sensor loaders come later.
 """
 
 from __future__ import annotations

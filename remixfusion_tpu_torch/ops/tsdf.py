@@ -9,13 +9,19 @@ reference's embedded CUDA kernels model/Volume.py:128-583):
   - shift_volume      <- the same on a dense [X, Y, Z] volume
   - filter_low_weight <- filter_tsdf (Volume.py:462-487)
   - BrickSelector     <- the host-side brick selection (numpy, a copy)
+  - integrate_global  <- the global-grid `integrate` (mapper.py:37-158):
+                         keyframe fusion into the dense [R, R, R(, 4)]
+                         grid over host-selected tiles (frustum_tiles,
+                         pick_global_tile, global_budget_buckets: numpy
+                         copies) or the dense sweep
 
 State is brick-major: tsdf/weight [NB, b^3], color [NB, b^3, 3], brick
 (bx, by, bz) at row (bx*BY + by)*BZ + bz and voxel (i, j, k) of a brick at
 column (i*b + j)*b + k. A fusion batch moves as one row gather and one row
 scatter. Unlike the JAX functions, which return new arrays, fuse_bricks_bm
-updates the state tensors in place (the selected rows only), which saves a
-full copy of the volume per frame; the shifts return new tensors.
+and integrate_global update the state tensors in place (the selected rows
+only), which saves a full copy of the volume per frame; the shifts return
+new tensors.
 
 Plain tensor code: no hand kernel here (the TPU package had none either).
 """
@@ -538,3 +544,252 @@ class BrickSelector:
             [sel // (BY * BZ), (sel // BZ) % BY, sel % BZ], -1).astype(np.int32)
         pad = np.full((budget - len(sel), 3), -1, np.int32)
         return np.concatenate([coords, pad], 0), n_near, len(sel), near_flat
+
+
+# ------------------------------------------------------------------------
+# Global keyframe grid (the mapper's explicit branch)
+# ------------------------------------------------------------------------
+
+
+def pick_global_tile(R: int, lo: int = 8, hi: int = 40,
+                     target: int = 24) -> int | None:
+    """Divisor of R closest to `target` in [lo, hi]: the tile edge of the
+    tiled global integrate, None when R has none (dense sweep only)."""
+    best = None
+    for t in range(lo, hi + 1):
+        if R % t == 0 and (best is None or abs(t - target) < abs(best - target)):
+            best = t
+    return best
+
+
+def global_budget_buckets(n_total: int) -> list:
+    """Tile-budget buckets of the tiled global integrate: sixteenths of the
+    tile count, 64-row aligned. A selection whose bucket reaches the whole
+    grid takes the dense sweep instead (the JAX package's compile-variant
+    bound; the port keeps the same decision so both integrate the same
+    voxels)."""
+    out = []
+    for k in range(1, 16):
+        b = min(-64 * (-(n_total * k) // (16 * 64)), n_total)
+        if b not in out:
+            out.append(b)
+    return out
+
+
+def frustum_tiles(dims, tile, origin, voxel_size, K, c2w, im_h, im_w,
+                  max_depth=None, pad_px: float = 0.0, depth_map=None,
+                  lam_max=None, trunc=None, free_rotate=None):
+    """Host-side (numpy): voxel offsets [N, 3] of the tiles whose AABB
+    intersects the view frustum (conservative corner test, `pad_px` wider
+    than the image). With `depth_map` (+ lam_max, trunc) a tile is also
+    dropped when its nearest corner lies beyond lam_max * (d_max + trunc)
+    of the largest valid depth in its own padded image box, or when that
+    box saw no valid depth. `free_rotate=(phase, every)`: tiles that are
+    provably pure free space (every voxel further than trunc + 2 voxels in
+    front of the surface) are kept only when flat_tile_id % every ==
+    phase. A copy of remixfusion_tpu.ops.tsdf.frustum_tiles: the same tiles
+    bit for bit."""
+    t = int(tile)
+    nx, ny, nz = ((dims[0] + t - 1) // t, (dims[1] + t - 1) // t,
+                  (dims[2] + t - 1) // t)
+    w2c_R = np.asarray(c2w, np.float32)[:3, :3].T
+    w2c_t = (-w2c_R @ np.asarray(c2w, np.float32)[:3, 3]).astype(np.float32)
+    origin32 = np.asarray(origin, np.float32)
+    vs32 = np.asarray(voxel_size, np.float32)
+    fx, fy, cx, cy = K[0][0], K[1][1], K[0][2], K[1][2]
+    eps = 1e-6
+
+    def corner_test(base, edge):
+        corners = np.stack(np.meshgrid([0, edge], [0, edge], [0, edge],
+                                       indexing="ij"),
+                           -1).reshape(-1, 3).astype(np.float32)
+        pts = (base[:, None, :].astype(np.float32) + corners[None, :, :]) \
+            * vs32 + origin32[None, None, :]
+        cam = pts @ w2c_R.T + w2c_t
+        z = cam[:, :, 2]
+        u = fx * cam[:, :, 0] / np.maximum(z, eps) + cx
+        v = fy * cam[:, :, 1] / np.maximum(z, eps) + cy
+        front = z > 0
+        any_front = front.any(1)
+        u_lo = np.where(front, u, -np.inf).max(1)
+        u_hi = np.where(front, u, np.inf).min(1)
+        v_lo = np.where(front, v, -np.inf).max(1)
+        v_hi = np.where(front, v, np.inf).min(1)
+        # boxes straddling the camera plane are never culled by borders
+        all_front = front.all(1)
+        out = (((u_lo < -pad_px) | (u_hi >= im_w + pad_px)
+                | (v_lo < -pad_px) | (v_hi >= im_h + pad_px)) & all_front)
+        keep = any_front & ~out
+        z_near = np.where(all_front, np.where(front, z, np.inf).min(1), 0.0)
+        if max_depth is not None:
+            keep = keep & (z_near <= max_depth)
+        z_far = np.where(front, z, -np.inf).max(1)
+        return keep, z_near, u, v, front, all_front, z_far
+
+    n_tiles = nx * ny * nz
+    s = 4 if n_tiles >= 4096 else 1
+    if s > 1:
+        # supertile prefilter: a culled superbox holds no kept child
+        sx, sy, sz = (nx + s - 1) // s, (ny + s - 1) // s, (nz + s - 1) // s
+        gx, gy, gz = np.meshgrid(np.arange(sx), np.arange(sy),
+                                 np.arange(sz), indexing="ij")
+        sbase = np.stack([gx, gy, gz], -1).reshape(-1, 3) * (s * t)
+        skeep = corner_test(sbase, s * t)[0]
+        child = np.stack(np.meshgrid(np.arange(s), np.arange(s),
+                                     np.arange(s), indexing="ij"),
+                         -1).reshape(-1, 3) * t
+        base = (sbase[skeep][:, None, :] + child[None, :, :]).reshape(-1, 3)
+        inside = ((base[:, 0] < nx * t) & (base[:, 1] < ny * t)
+                  & (base[:, 2] < nz * t))
+        base = base[inside]
+    else:
+        gx, gy, gz = np.meshgrid(np.arange(nx), np.arange(ny),
+                                 np.arange(nz), indexing="ij")
+        base = np.stack([gx, gy, gz], -1).reshape(-1, 3) * t
+
+    keep, z_near, u, v, front, all_front, z_far_c = corner_test(base, t)
+    if depth_map is not None and keep.any():
+        d = np.asarray(depth_map)
+        H, W = d.shape
+        blk = 32 if H * W <= 640 * 480 else 16
+        ph, pw = (-H) % blk, (-W) % blk
+        if ph or pw:
+            d = np.pad(d, ((0, ph), (0, pw)))
+        dmax_blk = d.reshape(d.shape[0] // blk, blk,
+                             d.shape[1] // blk, blk).max((1, 3))
+        nbh, nbw = dmax_blk.shape
+        with np.errstate(invalid="ignore"):
+            bu0 = np.clip(np.floor((u.min(1) - pad_px) / blk),
+                          0, nbw - 1).astype(np.int64)
+            bu1 = np.clip(np.floor((u.max(1) + pad_px) / blk),
+                          0, nbw - 1).astype(np.int64)
+            bv0 = np.clip(np.floor((v.min(1) - pad_px) / blk),
+                          0, nbh - 1).astype(np.int64)
+            bv1 = np.clip(np.floor((v.max(1) + pad_px) / blk),
+                          0, nbh - 1).astype(np.int64)
+        bu0 = np.where(all_front, bu0, 0)
+        bv0 = np.where(all_front, bv0, 0)
+        bu1 = np.where(all_front, bu1, nbw - 1)
+        bv1 = np.where(all_front, bv1, nbh - 1)
+        ki = np.flatnonzero(keep)
+        bi = np.arange(nbh * nbw)
+        br, bc = bi // nbw, bi % nbw
+        member = ((br[None, :] >= bv0[ki, None])
+                  & (br[None, :] <= bv1[ki, None])
+                  & (bc[None, :] >= bu0[ki, None])
+                  & (bc[None, :] <= bu1[ki, None]))
+        reg_max = np.where(member, dmax_blk.reshape(-1)[None, :], 0.0).max(1)
+        far = z_near[ki] > lam_max * (reg_max + trunc)
+        dead = reg_max <= 0
+        keep[ki[far | dead]] = False
+        if free_rotate is not None:
+            phase, every = int(free_rotate[0]), int(free_rotate[1])
+            if every > 1:
+                dmin_blk = np.where(d > 0, d, np.inf).reshape(
+                    d.shape[0] // blk, blk,
+                    d.shape[1] // blk, blk).min((1, 3))
+                reg_min = np.where(member, dmin_blk.reshape(-1)[None, :],
+                                   np.inf).min(1)
+                z_far = z_far_c[ki]
+                margin = trunc + 2.0 * float(np.max(vs32))
+                free = all_front[ki] & np.isfinite(reg_min) \
+                    & (reg_min - z_far > margin)
+                tid = ((base[ki, 0] // t).astype(np.int64) * ny
+                       + base[ki, 1] // t) * nz + base[ki, 2] // t
+                keep[ki[free & ((tid % every) != phase)]] = False
+    return base[keep].astype(np.int32)
+
+
+def _global_update(v, w, px, py, pz, depth_flat, color_flat, K, c2w,
+                   trunc_margin, obs_weight, im_h, im_w):
+    """Global-grid running-mean update of voxels v [M, 4] (tsdf, rgb), w
+    [M] at world points px/py/pz [M] (reference mapper.py:37-158): the
+    update is skipped where the fused tsdf would exceed 1, a negative
+    observation weight on a voxel of weight <= 1 resets it
+    (de-integration), color is fused with the tsdf and clamped to <= 1.
+    Same operations in the same order as the JAX tile update."""
+    cam_x, cam_y, cam_z, pix_x, pix_y = _project(px, py, pz, K, c2w)
+    in_front = cam_z > 0
+    in_image = (pix_x >= 0) & (pix_x < im_w) & (pix_y >= 0) & (pix_y < im_h)
+    pxc = pix_x.clamp(0, im_w - 1)
+    pyc = pix_y.clamp(0, im_h - 1)
+    flat_pix = pyc * im_w + pxc
+    depth_val = depth_flat[flat_pix]
+    new_c = color_flat[flat_pix]
+    vec_x = (pxc.to(torch.float32) - K[0, 2]) / K[0, 0]
+    vec_y = (pyc.to(torch.float32) - K[1, 2]) / K[1, 1]
+    lam = torch.sqrt(_fma(vec_x, vec_x, vec_y * vec_y) + 1.0)
+    cam_norm = torch.sqrt(_fma(cam_z, cam_z,
+                               _fma(cam_x, cam_x, cam_y * cam_y)))
+    sdf = -((cam_norm / lam) - depth_val)
+    update = (in_front & in_image & (depth_val > 0)
+              & (sdf >= -trunc_margin))
+    ts, cs = v[:, 0], v[:, 1:]
+    dist = torch.clamp(sdf / trunc_margin, max=1.0)
+    w_new = w + obs_weight
+    inv = 1.0 / torch.where(w_new != 0, w_new, torch.ones_like(w_new))
+    new_tsdf = (ts * w + obs_weight * dist) * inv
+    fused_c = torch.clamp((cs * w[:, None] + obs_weight * new_c)
+                          * inv[:, None], max=1.0)
+    deint = (obs_weight < 0) & (w <= 1) & update
+    do_upd = update & ~(new_tsdf > 1.0) & ~deint
+    ts = torch.where(deint, 1.0, torch.where(do_upd, new_tsdf, ts))
+    w = torch.where(deint, 0.0, torch.where(do_upd, w_new, w))
+    cs = torch.where(deint[:, None], 0.0,
+                     torch.where(do_upd[:, None], fused_c, cs))
+    return torch.cat([ts[:, None], cs], -1), w
+
+
+def integrate_global(gbv, gbw, depth, rgb, K, c2w, bound, *,
+                     trunc_margin: float, obs_weight: float = 1.0,
+                     tiles=None, tile: int | None = None,
+                     chunk: int = 1 << 21):
+    """Fuse one keyframe into the global grid gbv [R, R, R, 4] / gbw
+    [R, R, R] in place (the JAX package returns new arrays; updating the
+    touched voxels in place saves two copies of the 128 MB grid per
+    keyframe). Voxel i maps to bound_min + i / R * extent. `tiles`: voxel
+    offsets [n, 3] (multiples of `tile`) of the tiles to update — the
+    voxels outside them are provably not updated, or rotated free space —,
+    or None for the dense sweep over every voxel. depth [H, W] meters, rgb
+    [H, W, 3] in [0, 1], K [3, 3], c2w [4, 4], bound [3, 2]: tensors on the
+    grid's device. Voxels move through in chunks of `chunk`."""
+    R = gbv.shape[0]
+    dev = gbv.device
+    im_h, im_w = int(depth.shape[0]), int(depth.shape[1])
+    v_flat = gbv.view(-1, 4)
+    w_flat = gbw.view(-1)
+    depth_flat = depth.reshape(-1)
+    color_flat = rgb.reshape(-1, 3)
+    origin = bound[:, 0]
+    scale = bound[:, 1] - bound[:, 0]
+    inv_r = float(np.float32(1.0 / R))
+    obs = float(obs_weight)
+
+    def coord(i, a):
+        o = origin[a]
+        return _fma(((o + i.to(torch.float32)) - o) * inv_r, scale[a], o)
+
+    def run(lin):
+        ix, iy, iz = lin // (R * R), (lin // R) % R, lin % R
+        v2, w2 = _global_update(
+            v_flat[lin], w_flat[lin], coord(ix, 0), coord(iy, 1),
+            coord(iz, 2), depth_flat, color_flat, K, c2w, trunc_margin, obs,
+            im_h, im_w)
+        v_flat[lin] = v2
+        w_flat[lin] = w2
+
+    if tiles is None:
+        for s in range(0, R ** 3, chunk):
+            run(torch.arange(s, min(s + chunk, R ** 3), device=dev))
+        return gbv, gbw
+    t = int(tile)
+    loc = torch.arange(t ** 3, device=dev)
+    li, lj, lk = loc // (t * t), (loc // t) % t, loc % t
+    offs = torch.as_tensor(np.asarray(tiles, np.int64), device=dev)
+    per = max(1, chunk // t ** 3)
+    for s in range(0, offs.shape[0], per):
+        o = offs[s:s + per]
+        lin = (((o[:, 0:1] + li) * R + (o[:, 1:2] + lj)) * R
+               + (o[:, 2:3] + lk)).reshape(-1)
+        run(lin)
+    return gbv, gbw

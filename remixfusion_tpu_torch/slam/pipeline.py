@@ -1,17 +1,24 @@
-"""Online tracking + local fusion loop (the "serving" half of the SLAM).
+"""Online SLAM loop: tracking + local fusion, and the mapping rounds.
 
-Counterpart of the tracking half of remixfusion_tpu.slam.pipeline.
-RemixFusionTPU (reference run.py, mp_slam/tracker.py): every frame is
-tracked by ROTracker against the moving local TSDF volume and then fused
-into it with the brick fuser; the host re-centers the volume and selects the
-bricks to fuse from poses extrapolated off the harvested frontier. The
-result is the raw tracker trajectory (RO poses) and its ATE.
+Counterpart of remixfusion_tpu.slam.pipeline.RemixFusionTPU (reference
+run.py, mp_slam/tracker.py, mp_slam/mapper.py:874-950), on one device:
 
-The mapping rounds of the JAX pipeline (global keyframe grid, residual
-field and decoders, RBA bundle adjustment), the final mesh and resume state
-come with the next slice. They never feed the RO chain: the tracker's
-initial pose comes from the device pose chain of RO poses, and host
-re-centering and brick selection read harvested RO poses only.
+  - every frame is tracked by ROTracker against the moving local TSDF
+    volume and fused into it with the brick fuser; the host re-centers the
+    volume and selects the bricks to fuse from poses extrapolated off the
+    harvested frontier (RO poses only: mapping never feeds the RO chain);
+  - frame 0 seeds the global keyframe grid and runs mapping.first_iters
+    map steps on host-drawn rays (first_frame_mapping);
+  - whenever the harvested frontier passes mapping_idx + map_every, a
+    mapping round runs at mapping_idx + keyframe_every: the keyframe is
+    integrated into the global grid, `iters` map steps train the residual
+    field + decoders, `BA_iters` RBA steps refine every keyframe pose, and
+    the keyframe's rays join the store. The refined poses are written back
+    into the trajectory one round late (the reference's cross-process
+    staleness, mapper.py:510-520);
+  - finalize drains the rounds, applies the last write-back and composes
+    the trajectory (non-keyframes relative to their keyframe): the full
+    ATE, all_poses.npy and tracking_result.txt. Mesh extraction comes later.
 
 Schedule (single-threaded, same decisions as the JAX pipeline): frame i's
 tracked pose is harvested `tracking.harvest_depth` frames later; frame i
@@ -20,7 +27,9 @@ from the pose extrapolated off the harvested frontier, or, after a
 re-center or before two poses are harvested, a selection made at frame i
 itself. Frames reach the device as the sensor-native quantization the JAX
 package ships them in (depth to 1 mm, color to 8 bits); the first-frame
-seed fuses the float frame.
+seed and first-frame mapping use the float frame, as in JAX. The mapping
+round's integrate tiles are selected inline (the JAX package computes the
+same selection ahead on a worker thread).
 """
 
 from __future__ import annotations
@@ -37,6 +46,10 @@ from remixfusion_tpu_torch import host_to_device, resolve_device
 from remixfusion_tpu_torch.core.pose import const_speed_np, \
     predict_const_speed
 from remixfusion_tpu_torch.datasets import get_dataset
+from remixfusion_tpu_torch.mapping.keyframe import DeviceKeyFrameStore
+from remixfusion_tpu_torch.mapping.mapper import Mapper
+from remixfusion_tpu_torch.models.encodings import HashGridEncoding
+from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
 from remixfusion_tpu_torch.tools.eval_ate import evaluate_ate
 from remixfusion_tpu_torch.tracking.rotracker import ROTracker
 from remixfusion_tpu_torch.tracking.volume import MovingVolume
@@ -63,8 +76,18 @@ def quantize_rgb(rgb: np.ndarray) -> np.ndarray:
     return rgb8.astype(np.float32) * np.float32(1.0 / 255.0)
 
 
+def keyframe_capacity(n_frames: int, kf_every: int) -> int:
+    """Keyframe slots: n_frames // kf_every + 1 padded to a power of two
+    >= 16 (the JAX pipeline's capacity; the RBA network's id input is
+    normalized by it)."""
+    cap = 16
+    while cap < n_frames // kf_every + 1:
+        cap *= 2
+    return cap
+
+
 class RemixFusionTorch:
-    """Tracking + local fusion on one device (CUDA unless device='cpu')."""
+    """The online SLAM loop on one device (CUDA unless device='cpu')."""
 
     def __init__(self, config, device=None):
         self.config = config
@@ -75,9 +98,15 @@ class RemixFusionTorch:
         self.update_cam()
         self.dataset = get_dataset(config)
         n_frames = self.dataset.num_frames
-        # raw tracker (RO) poses; the BA-refined trajectory comes with the
-        # mapping slice
+        m = config["mapping"]
+        self._kf_every = int(m["keyframe_every"])
+        self.bound = np.asarray(m["bound"], np.float32)
+        self.num_kf = keyframe_capacity(n_frames, self._kf_every)
+        # raw tracker poses (RO), the tracker + BA-refined poses (est) and
+        # the keyframe-relative deltas of non-keyframes
         self.RO_c2w_data = np.zeros((n_frames, 4, 4), np.float32)
+        self.est_c2w_data = np.zeros((n_frames, 4, 4), np.float32)
+        self.est_c2w_data_rel = np.zeros((n_frames, 4, 4), np.float32)
         self.pose_gt = np.stack([np.asarray(p, np.float32)
                                  for p in self.dataset.poses])
 
@@ -86,16 +115,46 @@ class RemixFusionTorch:
         # pose overrides of Largeindoor/uhumans come with their loaders)
         init_pose = np.asarray(batch0["c2w"], np.float32).copy()
         self.RO_c2w_data[0] = init_pose
+        self.est_c2w_data[0] = init_pose
         self.mv = MovingVolume(config, init_pose, self.device)
         self.K = self.dataset.K()
         self.K_dev = host_to_device(self.K, self.device)
         self.tracker = ROTracker(
             config, self.dataset.H, self.dataset.W, self.K, self.mv.dims,
             self.mv.voxel_size, self.mv.brick_layout(), self.device)
+
+        # mapping state: scene model, optimizers, keyframe ray store
+        self._seed = int(config.get("seed", 42)) & 0xFFFFFFFF
+        self._np_rng = np.random.default_rng(self._seed)
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            self._seed)
+        self.scene = SceneRepresentation(config, self.bound, self.num_kf,
+                                         device=self.device,
+                                         generator=self._gen)
+        self.mapper = Mapper(config, self.scene)
+        self.kfdb = DeviceKeyFrameStore(
+            self.num_kf, self.dataset.num_rays_to_save,
+            config["cam"]["depth_trunc"], self.device)
+        self.bound_dev = host_to_device(self.bound, self.device)
+        self.dirs_dev = host_to_device(
+            np.asarray(batch0["direction"], np.float32).reshape(-1, 3),
+            self.device)
+        self.mapping_idx = 0
+        self.tracking_idx = 0
+        # deferred BA write-back: (poses [num_kf, 4, 4], cur_kf_id, frame)
+        self._pending_ba = None
+        self._map_frame_cache = None
+        self.map_iters_done = 0
+        self.ba_iters_done = 0
+        self.round_ms = []
+        self.first_frame_losses = None
+
         if self.device.type == "cuda":
-            # build + load the kernel now: set-up time, not loop time
+            # build + load the kernels now: set-up time, not loop time
             from remixfusion_tpu_torch.ops import build
             build.load("brick_eval")
+            if isinstance(self.scene.embed_res_fn, HashGridEncoding):
+                build.load("hash_enc")
         # the first frame seeds the whole local volume (reference
         # ROtracker.py:132 integrates frame 0 at tracker construction)
         self.mv.integrate_seed(batch0["rgb"], batch0["depth"], self.K,
@@ -123,7 +182,6 @@ class RemixFusionTorch:
         if self._color_fuse not in ("keyframes", "all"):
             raise ValueError(f"volume.color_fuse must be 'keyframes' or "
                              f"'all', got {self._color_fuse!r}")
-        self._kf_every = int(config["mapping"]["keyframe_every"])
         # fitness-gated fusion weight (volume.fuse_fit_gate: [lo, hi])
         self._fuse_gate = vcfg.get("fuse_fit_gate")
         self._one = torch.ones((), dtype=torch.float32, device=self.device)
@@ -170,6 +228,19 @@ class RemixFusionTorch:
         rgb = quantize_rgb(np.asarray(batch["rgb"]))
         return depth_t, torch.floor(host_to_device(rgb, self.device) * 255.0)
 
+    def _map_frame(self, idx: int, batch):
+        """Quantized (depth [H, W], rgb [H, W, 3] in [0, 1]) of frame idx on
+        the device, as the mapping round consumes them (kept for the
+        round's integrate, map and BA steps and the keyframe add)."""
+        cache = self._map_frame_cache
+        if cache is None or cache[0] != idx:
+            cache = (idx, host_to_device(
+                quantize_depth(np.asarray(batch["depth"])), self.device),
+                host_to_device(quantize_rgb(np.asarray(batch["rgb"])),
+                               self.device))
+            self._map_frame_cache = cache
+        return cache[1], cache[2]
+
     def _needs_color(self, frame_id: int) -> bool:
         return self._color_fuse == "all" or frame_id % self._kf_every == 0
 
@@ -207,6 +278,14 @@ class RemixFusionTorch:
         self._last_harvested = (self._last_harvested
                                 + [(frame_id, c2w)])[-2:]
         self.RO_c2w_data[frame_id] = c2w
+        self.est_c2w_data[frame_id] = c2w
+        if frame_id % self._kf_every != 0:
+            kf = (frame_id // self._kf_every) * self._kf_every
+            self.est_c2w_data_rel[frame_id] = (
+                c2w.astype(np.float64)
+                @ np.linalg.inv(self.RO_c2w_data[kf].astype(np.float64))
+            ).astype(np.float32)
+        self.tracking_idx = frame_id
 
     def _host_pose_estimate(self, frame_id: int) -> np.ndarray:
         """Pose of frame_id extrapolated from the last two harvested poses
@@ -284,6 +363,164 @@ class RemixFusionTorch:
                     self.K, phase, update_seen=False)
                 self._lookahead = (nxt, origin, sel, phase)
 
+    # ------------------------------------------------------------ mapping
+
+    def first_frame_mapping(self):
+        """Seed the global grid with frame 0 and run mapping.first_iters
+        map steps on rays drawn on the host (reference mapper.py:284-364);
+        the draws come from np.random.default_rng(seed), as in the JAX
+        pipeline. Returns the losses (numpy [first_iters])."""
+        batch = self._get_frame(0)
+        c2w = self.RO_c2w_data[0].copy()
+        self.est_c2w_data[0] = c2w
+        self.est_c2w_data_rel[0] = c2w
+        c2w_dev = host_to_device(c2w, self.device)
+        self.mapper.reset_global_volume()
+        self.mapper.integrate_keyframe(
+            host_to_device(np.asarray(batch["depth"], np.float32),
+                           self.device),
+            host_to_device(np.asarray(batch["rgb"], np.float32),
+                           self.device),
+            self.K_dev, c2w_dev, self.bound_dev, host_depth=batch["depth"],
+            host_c2w=c2w, K_np=self.K)
+        self.scene.rba.update_init_pose(0, c2w_dev)
+
+        m = self.config["mapping"]
+        n_iters, sample = int(m["first_iters"]), int(m["sample"])
+        dirs = np.asarray(batch["direction"]).reshape(-1, 3)
+        rgb = np.asarray(batch["rgb"]).reshape(-1, 3)
+        depth = np.asarray(batch["depth"]).reshape(-1)
+        poses = np.tile(c2w[None], (sample, 1, 1))
+        losses = []
+        # host batches go up 25 iterations at a time (the JAX pipeline's
+        # chunk; the draws are the same whatever the chunk)
+        done = 0
+        while done < n_iters:
+            n = min(25, n_iters - done)
+            rays, ro, rd = [], [], []
+            for _ in range(n):
+                idx = self._np_rng.integers(0, len(depth), sample)
+                r = np.concatenate([dirs[idx], rgb[idx], depth[idx, None]],
+                                   -1).astype(np.float32)
+                o, d = Mapper.rays_to_world_np(r, poses)
+                rays.append(r)
+                ro.append(o)
+                rd.append(d)
+            up = lambda a: host_to_device(np.stack(a), self.device)  # noqa
+            losses.append(self.mapper.map_step(
+                up(rays), up(ro), up(rd), generator=self._gen))
+            self.map_iters_done += n
+            done += n
+        dep_dev, rgb_dev = self._map_frame(0, batch)
+        self.kfdb.add_keyframe(0, dep_dev, rgb_dev, self.dirs_dev,
+                               filter_depth=m["filter_depth"],
+                               generator=self._gen)
+        self.first_frame_losses = (torch.cat(losses).cpu().numpy()
+                                   if losses else np.zeros(0, np.float32))
+        return self.first_frame_losses
+
+    def global_mapping(self, batch, cur_frame_id: int, n_cur=None):
+        """`mapping.iters` map steps of a round (reference
+        mapper.py:366-423); the keyframes' poses are the current
+        trajectory's, the current keyframe's comes from the RBA network.
+        n_cur: current-frame rays per batch (None = the round's budget)."""
+        m = self.config["mapping"]
+        cur_kf_id = cur_frame_id // self._kf_every
+        if n_cur is None:
+            n_cur = self.mapper.current_ray_budget(len(self.kfdb))
+        kf_poses = np.zeros((self.num_kf, 4, 4), np.float32)
+        n_valid = cur_kf_id + 1
+        kf_poses[:n_valid] = self.est_c2w_data[
+            np.arange(n_valid) * self._kf_every]
+        dep, rgb = self._map_frame(cur_frame_id, batch)
+        losses = self.mapper.map_step_dev(
+            self.kfdb, len(self.kfdb), self.dirs_dev, dep, rgb,
+            host_to_device(kf_poses, self.device), cur_kf_id,
+            int(m["iters"]), n_cur, generator=self._gen)
+        self.map_iters_done += int(m["iters"])
+        return losses
+
+    def global_pose(self, batch, cur_frame_id: int):
+        """`mapping.BA_iters` RBA steps (reference mapper.py:425-520); the
+        refined poses are written back at the start of the next round."""
+        m = self.config["mapping"]
+        if not m["opt_pose"]:
+            return None
+        cur_kf_id = cur_frame_id // self._kf_every
+        n_cur = self.mapper.current_ray_budget(len(self.kfdb))
+        dep, rgb = self._map_frame(cur_frame_id, batch)
+        losses, poses_all = self.mapper.ba_step_dev(
+            self.kfdb, len(self.kfdb), self.dirs_dev, dep, rgb, cur_kf_id,
+            int(m["BA_iters"]), n_cur, generator=self._gen)
+        self.ba_iters_done += int(m["BA_iters"])
+        self._pending_ba = (poses_all, cur_kf_id, cur_frame_id)
+        return losses
+
+    def _apply_pending_ba(self):
+        """Write the BA-refined keyframe poses into est_c2w_data
+        (reference mapper.py:510-520), one round late."""
+        if self._pending_ba is None:
+            return
+        poses_all, cur_kf_id, cur_frame_id = self._pending_ba
+        self._pending_ba = None
+        poses_all = poses_all.cpu().numpy()
+        m = self.config["mapping"]
+        if cur_kf_id >= 1:
+            self.est_c2w_data[np.arange(cur_kf_id) * self._kf_every] = \
+                poses_all[:cur_kf_id]
+            if m["optim_cur"]:
+                self.est_c2w_data[cur_frame_id] = poses_all[cur_kf_id]
+
+    def mapping_round(self, cur_frame_id: int):
+        """One mapping round at cur_frame_id (reference
+        mapper.py:874-928). Its wall time (host clock, ending in a device
+        synchronise) goes to self.round_ms."""
+        t0 = time.perf_counter()
+        self._apply_pending_ba()
+        batch = self._get_frame(cur_frame_id)
+        is_kf = cur_frame_id % self._kf_every == 0
+        with record_function("map.integrate"):
+            if is_kf:
+                cur_kf_id = cur_frame_id // self._kf_every
+                c2w = self.est_c2w_data[cur_frame_id].copy()
+                c2w_dev = host_to_device(c2w, self.device)
+                self.scene.rba.update_init_pose(cur_kf_id, c2w_dev)
+                dep, rgb = self._map_frame(cur_frame_id, batch)
+                self.mapper.integrate_keyframe(
+                    dep, rgb, self.K_dev, c2w_dev, self.bound_dev,
+                    host_depth=np.asarray(batch["depth"]), host_c2w=c2w,
+                    K_np=self.K, kf_index=cur_kf_id)
+        with record_function("map.map"):
+            self.global_mapping(batch, cur_frame_id)
+        with record_function("map.ba"):
+            self.global_pose(batch, cur_frame_id)
+        self.mapping_idx = cur_frame_id
+        with record_function("map.kfadd"):
+            if is_kf:
+                dep, rgb = self._map_frame(cur_frame_id, batch)
+                self.kfdb.add_keyframe(
+                    cur_frame_id, dep, rgb, self.dirs_dev,
+                    filter_depth=self.config["mapping"]["filter_depth"],
+                    generator=self._gen)
+        self._sync()
+        self.round_ms.append(1000.0 * (time.perf_counter() - t0))
+
+    def _due_rounds(self, n: int):
+        """Run the mapping rounds the harvested frontier has unlocked
+        (rounds stop at frame n)."""
+        map_every = int(self.config["mapping"]["map_every"])
+        while self.tracking_idx > self.mapping_idx + map_every:
+            cur = self.mapping_idx + self._kf_every
+            if cur >= n:
+                break
+            self.mapping_round(cur)
+
+    def step(self, frame_id: int, n: int):
+        """One frame of the online loop: track + fuse frame_id, then the
+        mapping rounds that became due (rounds stop at frame n)."""
+        self.track_frame(frame_id, self._get_frame(frame_id))
+        self._due_rounds(n)
+
     # ---------------------------------------------------------- main loop
 
     def preload(self, n: int):
@@ -292,12 +529,27 @@ class RemixFusionTorch:
             if i not in self._frames:
                 self._frames[i] = self.dataset[i]
 
+    def trajectory(self, n: int) -> np.ndarray:
+        """[n, 4, 4] poses: keyframes as estimated (BA-refined), other
+        frames composed onto their keyframe (reference mapper.py:580-624)."""
+        out = np.zeros((n, 4, 4), np.float32)
+        for i in range(n):
+            if i % self._kf_every == 0:
+                out[i] = self.est_c2w_data[i]
+            else:
+                kf = (i // self._kf_every) * self._kf_every
+                out[i] = self.est_c2w_data_rel[i] @ self.est_c2w_data[kf]
+        return out
+
     def run(self, max_frames: int | None = None, warmup: int = 5):
-        """Track frames 1..n-1 (n = num_frames, or max_frames), harvest
-        every pose and evaluate the RO-only ATE over frames [0, n). Frames
-        are preloaded, so the per-frame time (host clock, ending in a device
-        synchronise) covers tracking, fusion and host selection only; it is
-        taken over the frames after `warmup`. Returns a stats dict."""
+        """First-frame mapping, then frames 1..n-1 (n = num_frames, or
+        max_frames) each tracked and followed by the mapping rounds that
+        became due, then finalize. Frames are preloaded, so the per-frame
+        time (host clock, ending in a device synchronise) covers tracking,
+        fusion, host selection and the mapping rounds; it is taken over the
+        frames after `warmup`. Writes config.json, ro_poses.npy,
+        all_poses.npy, tracking_result.txt and tracking_result.json to the
+        output directory. Returns a stats dict."""
         os.makedirs(self.out_dir, exist_ok=True)
         with open(os.path.join(self.out_dir, "config.json"), "w") as f:
             json.dump(self.config, f, indent=2, default=str)
@@ -307,34 +559,78 @@ class RemixFusionTorch:
         self.preload(n + 1)
         warmup = min(warmup, (n - 1) // 2)
 
+        t0 = time.perf_counter()
+        self.first_frame_mapping()
+        self._sync()
+        first_ms = 1000.0 * (time.perf_counter() - t0)
         t_start = None
         for idx in range(1, n):
             if idx == warmup + 1:
                 self._sync()
                 t_start = time.perf_counter()
-            self.track_frame(idx, self._get_frame(idx))
-        self._harvest()
+                rounds_before = len(self.round_ms)
+            self.step(idx, n)
         self._sync()
         elapsed = time.perf_counter() - t_start
         timed = n - 1 - warmup
-
-        stats = evaluate_ate(
-            {float(i): self.pose_gt[i] for i in range(n)},
-            {float(i): self.RO_c2w_data[i] for i in range(n)})
-        np.save(os.path.join(self.out_dir, "ro_poses.npy"),
-                self.RO_c2w_data[:n])
-        out = {
+        timed_rounds = len(self.round_ms) - rounds_before
+        return self.finalize(n, {
             "frames": n,
             "tracked_frames": n - 1,
             "timed_frames": timed,
             "ms_per_frame": 1000.0 * elapsed / timed,
-            "ate_rmse_cm_ro_only": stats["rmse"] * 100.0,
+            "timed_rounds": timed_rounds,
+            "first_frame_mapping_ms": first_ms,
+        })
+
+    def finalize(self, n: int, stats: dict) -> dict:
+        """Harvest, drain the due mapping rounds, apply the last BA
+        write-back, and evaluate / write the trajectory of frames [0, n)
+        (reference mapper.py:930-950, up to the mesh)."""
+        self._harvest()
+        self._due_rounds(n)
+        self._apply_pending_ba()
+        # mapping.final_iters: extra field-only map steps over the keyframe
+        # store with the final poses (no current-frame slice: the newest
+        # keyframe is in the store already); 0, the default, skips them
+        final_iters = int(self.config["mapping"].get("final_iters", 0))
+        if final_iters > 0 and self.mapping_idx > 0:
+            batch = self._get_frame(self.mapping_idx)
+            for _ in range(-(-final_iters
+                             // int(self.config["mapping"]["iters"]))):
+                self.global_mapping(batch, self.mapping_idx, n_cur=0)
+        poses = self.trajectory(n)
+        gt = {float(i): self.pose_gt[i] for i in range(n)}
+        full = evaluate_ate(gt, {float(i): poses[i] for i in range(n)})
+        ro = evaluate_ate(gt, {float(i): self.RO_c2w_data[i]
+                               for i in range(n)})
+        np.save(os.path.join(self.out_dir, "all_poses.npy"), poses)
+        np.save(os.path.join(self.out_dir, "ro_poses.npy"),
+                self.RO_c2w_data[:n])
+        line = (f"{n - 1} ate-rmse(cm): {full['rmse'] * 100:.4f} "
+                f"mean: {full['mean'] * 100:.4f} "
+                f"median: {full['median'] * 100:.4f} "
+                f"pairs: {full['compared_pose_pairs']}\n")
+        with open(os.path.join(self.out_dir, "tracking_result.txt"),
+                  "a") as f:
+            f.write(line)
+        ffl = self.first_frame_losses
+        stats.update({
+            "ate_rmse_cm": full["rmse"] * 100.0,
+            "ate_rmse_cm_ro_only": ro["rmse"] * 100.0,
+            "mapping_rounds": len(self.round_ms),
+            "ms_per_round": (float(np.mean(self.round_ms))
+                             if self.round_ms else 0.0),
+            "map_iters": self.map_iters_done,
+            "ba_iters": self.ba_iters_done,
+            "first_frame_loss": ([float(ffl[0]), float(ffl[-1])]
+                                 if ffl is not None and len(ffl) else None),
             "device": str(self.device),
-        }
+        })
         with open(os.path.join(self.out_dir, "tracking_result.json"),
                   "w") as f:
-            json.dump(out, f, indent=2)
-        return out
+            json.dump(stats, f, indent=2)
+        return stats
 
     def _sync(self):
         if self.device.type == "cuda":

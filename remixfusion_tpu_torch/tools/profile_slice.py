@@ -5,14 +5,15 @@
         [--profile 10] [--config configs/Synthetic/synthetic_bench.yaml]
         [--out build/profile]
 
-Runs RemixFusionTorch (tracking + local fusion) over the first --frames
-frames and traces the last --profile of them with torch.profiler. Prints
-and writes (<out>/profile_slice.json) the wall
-time per frame, the host time of each pipeline stage (the slice.* spans of
-track_frame: harvest, select, upload, track, fuse, lookahead), the device's
-busy and idle share of the traced window, kernel launches per frame and the
-kernels that take the most device time. Needs a card; exits non-zero
-without one.
+Runs RemixFusionTorch (first-frame mapping, then tracking + local fusion
+and the mapping rounds that fall due) over the first --frames frames and
+traces the last --profile of them with torch.profiler. Prints and writes
+(<out>/profile_slice.json) the wall time per frame, the host time of each
+pipeline stage per frame (the slice.* spans of track_frame: harvest,
+select, upload, track, fuse, lookahead) and per mapping round (the map.*
+spans of mapping_round: integrate, map, ba, kfadd), the device's busy and
+idle share of the traced window, kernel launches per frame and the kernels
+that take the most device time. Needs a card; exits non-zero without one.
 """
 
 import argparse
@@ -49,18 +50,20 @@ def main():
     n = args.frames
     slam.preload(n + 1)
     first = n - args.profile
+    slam.first_frame_mapping()
     for i in range(1, first):
-        slam.track_frame(i, slam._get_frame(i))
+        slam.step(i, n)
     torch.cuda.synchronize()
+    rounds0 = len(slam.round_ms)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
         for i in range(first, n):
-            slam.track_frame(i, slam._get_frame(i))
-        slam._harvest()
+            slam.step(i, n)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     frames = n - first
+    rounds = len(slam.round_ms) - rounds0
 
     def dev_time(e):
         return getattr(e, "self_device_time_total",
@@ -68,12 +71,15 @@ def main():
 
     def on_card(e):  # kernels and copies, not host ops or span ranges
         return ("CUDA" in str(e.device_type) and not e.key.startswith(
-            ("slice.", "aten::")))
+            ("slice.", "map.", "aten::")))
 
     avgs = prof.key_averages()
     stages = {e.key: e.cpu_time_total / frames / 1e3 for e in avgs
               if e.key.startswith("slice.") and not on_card(e)
               and e.cpu_time_total > 0}
+    round_stages = {e.key: e.cpu_time_total / max(rounds, 1) / 1e3
+                    for e in avgs if e.key.startswith("map.")
+                    and not on_card(e) and e.cpu_time_total > 0}
     kernels = sorted(((e.key[:120], dev_time(e) / frames / 1e3,
                        e.count / frames)
                       for e in avgs if on_card(e) and dev_time(e) > 0),
@@ -91,6 +97,11 @@ def main():
         "device_idle_share": 1.0 - busy_us / wall_us,
         "kernel_launches_per_frame": launches,
         "stage_host_ms_per_frame": stages,
+        "mapping_rounds_in_window": rounds,
+        "round_stage_host_ms_per_round": round_stages,
+        "hash_table_grad_launches_in_window": sum(
+            e.count for e in avgs
+            if on_card(e) and "hash_table_grad_kernel" in e.key),
         "top_device_kernels_ms_per_frame": kernels[:15],
     }
     os.makedirs(args.out, exist_ok=True)

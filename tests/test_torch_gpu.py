@@ -78,3 +78,36 @@ def test_brick_eval_kernel_matches_plain(cuda_device, interp):
     keep = out < 1e6
     d = (out - ref).abs()[keep]
     assert d.max().item() < 5e-3 and d.mean().item() < 1e-4
+
+
+def hash_grad_inputs(n_pts, seed):
+    """The bench_hashgrid encoder (16 levels, 2^16 hashed, desired
+    resolution 200), points inside and around the unit cube, and an output
+    gradient of mapping-step scale."""
+    from remixfusion_tpu_torch.models.encodings import HashGridEncoding
+
+    enc = HashGridEncoding(16, 2, 16, 16, 200)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.2, 1.2, (n_pts, 3)).astype(np.float32)
+    g = (1e-3 * rng.standard_normal((n_pts, 32))).astype(np.float32)
+    return enc, x, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pts", [29791, 120832])
+def test_hash_table_grad_kernel_matches_plain(cuda_device, n_pts):
+    from remixfusion_tpu_torch.ops import hash_enc as he
+
+    enc, x, g = hash_grad_inputs(n_pts, 5)
+    x, g = torch.from_numpy(x).to(cuda_device), torch.from_numpy(g).to(
+        cuda_device)
+    before = he.hash_table_grad.launches
+    out = he.hash_table_grad(enc, x, g, enc.table_size)
+    torch.cuda.synchronize()
+    assert he.hash_table_grad.launches == before + 1
+    ref = he.hash_table_grad_reference(enc, x, g, enc.table_size)
+    # atomics add in another order than index_add_: float32 reassociation
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-5 * scale
+    # rows no point touched stay exactly zero in both
+    assert torch.equal(out == 0, ref == 0)
