@@ -18,11 +18,12 @@ prints no result line):
      round every 5 frames. Kernel launch counts are zeroed just before and
      read just after: brick_eval launched 20 times per tracked frame,
      hash_table_grad never; RO-only and full ATE below 2 cm;
-  3. kernel brick_eval against its plain PyTorch version on the card, on
-     the tier inputs (windows and vertices) of slice A's last frame, at the
-     three main-path shapes and in both interpolation modes, with the parity
+  3. kernel brick_eval (the tracker's entry, windows gathered from the
+     brick-major volume inside the kernel) against its plain PyTorch version
+     on the card, on the tier inputs of slice A's last frame, at the three
+     main-path shapes and in both interpolation modes, with the parity
      tests' tolerance (max |d| < 5e-3, mean < 1e-4, same 1e6-guard
-     positions); kernel and plain version timed with CUDA events;
+     positions) and the same bits on a second call;
   4. slice B: configs/Synthetic/bench_hashgrid.yaml (HashGrid residual
      field, 16 levels, 2^16 hashed) the same way: brick_eval launched 20
      times per tracked frame, hash_table_grad twice per map iteration (the
@@ -31,11 +32,16 @@ prints no result line):
   5. kernel hash_table_grad against its plain version on the card, on the
      points and output gradients of slice B's last map step (render and
      smoothness shapes): max |d| <= 1e-5 * max |plain| (atomics reorder
-     float32 sums) and rows no point touched exactly zero in both; kernel,
-     plain version and index_add_ on precomputed rows (the library
-     yardstick, used nowhere in the port) timed with CUDA events;
+     float32 sums) and rows no point touched exactly zero; index_add_ on
+     precomputed rows is the library yardstick (used nowhere in the port);
   6. the kernels JSON line; 7. the card's name and power limit; and last
      the {"ok": true, ...} line.
+Every kernel is timed two ways: device_ms, the device time of one call (a
+CUDA graph of many calls replayed back to back, timed with CUDA events,
+divided by the number of calls; the output allocation and zeroing of a
+call are in it), and call_ms, one call of the wrapper in a host loop (CUDA
+events around the loop: the larger of the host's cost of a call and its
+device time).
 """
 
 import json
@@ -79,9 +85,10 @@ def card_line():
 
 
 def time_cuda(torch, fn, n, warmup):
-    """Mean ms per call over n calls after warm-up (CUDA events). Inputs
-    stay L2-resident, as in the main path, where the preceding gather just
-    produced them."""
+    """Call time: mean ms per call over n calls of the wrapper in a host
+    loop after warm-up (CUDA events around the loop), which is max(host
+    cost of a call, its device time). Inputs stay L2-resident, as in the
+    main path, where the preceding ops just produced them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -93,6 +100,34 @@ def time_cuda(torch, fn, n, warmup):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def time_device(torch, fn, n, warmup):
+    """Device time: mean ms per call of n calls captured in one CUDA graph
+    and replayed back to back (CUDA events around the replay), so no host
+    cost is in it. The calls are warmed up first, outside the capture."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / n
+
+
+def measure(torch, fn, n, warmup):
+    return {"device_ms": time_device(torch, fn, n, warmup),
+            "call_ms": time_cuda(torch, fn, n, warmup)}
 
 
 def phase_build():
@@ -108,7 +143,7 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
 
-def phase_slice(torch, label, capture=None):
+def phase_slice(torch, label):
     """Drive slice `label` through RemixFusionTorch.run with every kernel's
     launch count zeroed just before and read just after."""
     import numpy as np
@@ -127,10 +162,10 @@ def phase_slice(torch, label, capture=None):
           f"(seed fusion, {N_FRAMES + 1} frames rendered) "
           f"{time.time() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    be.brick_eval.launches = 0
+    be.brick_eval_volume.launches = 0
     he.hash_table_grad.launches = 0
     out = slam.run(max_frames=N_FRAMES)
-    launches = {"brick_eval": be.brick_eval.launches,
+    launches = {"brick_eval": be.brick_eval_volume.launches,
                 "hash_table_grad": he.hash_table_grad.launches}
     peak = torch.cuda.max_memory_allocated()
     iters = int(cfg["RO"]["particle_iter_lens"])
@@ -173,10 +208,10 @@ def phase_slice(torch, label, capture=None):
     return slam, out, launches
 
 
-def phase_kernels(torch, slam, frames):
-    import numpy as np
-
-    from remixfusion_tpu_torch.ops import brick_eval as be
+def tier_cases(torch, slam, frames):
+    """brick_eval_volume's arguments (params, pix, base, tsdf_bm, layout,
+    table) at the three tiers of the tracker's last frame, its first
+    particle iteration."""
     from remixfusion_tpu_torch.slam.pipeline import quantize_depth
 
     tr = slam.tracker
@@ -186,18 +221,34 @@ def phase_kernels(torch, slam, frames):
     c2w = torch.tensor(slam.RO_c2w_data[last], device=slam.device)
     ss = tr.init_search_size()
     vn = tr.vertex_normal_maps(depth)
-    shapes = []
+    cases = []
     for cls in range(3):
-        params, pix, bricks = tr.tier_inputs(
+        params, pix, base = tr.tier_inputs(
             tr.class_level[cls], 0, c2w[:3, :3], c2w[:3, 3], ss, vn,
-            slam.mv.state.tsdf, slam.mv.state.origin)
-        table = tr.pst_t[cls][0]
+            slam.mv.state.origin)
+        cases.append((params, pix, base, slam.mv.state.tsdf,
+                      tr.brick_layout, tr.pst_t[cls][0]))
+    return cases
+
+
+def phase_kernels(torch, slam, frames):
+    import numpy as np
+
+    from remixfusion_tpu_torch.ops import brick_eval as be
+
+    shapes = []
+    for args in tier_cases(torch, slam, frames):
+        params, pix, base, tsdf, layout, table = args
         C, P = table.shape[1], pix.shape[0]
+        windows = be.fetch_windows(tsdf, layout, base)
         for interp in ("nearest", "trilinear"):
-            args = (params, pix, bricks, table)
-            got = be.brick_eval(*args, interp=interp)
-            ref = be.brick_eval_reference(*args, interp=interp)
+            got = be.brick_eval_volume(*args, interp=interp)
+            again = be.brick_eval_volume(*args, interp=interp)
+            ref = be.brick_eval_volume_reference(*args, interp=interp)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"brick_eval gave other bits on a second call at C={C} "
+                     f"P={P} {interp}")
             if not torch.equal(got >= 1e6, ref >= 1e6):
                 fail(f"brick_eval guard positions differ at C={C} P={P} "
                      f"{interp}")
@@ -208,34 +259,40 @@ def phase_kernels(torch, slam, frames):
             if not (err_max < TOL_MAX and err_mean < TOL_MEAN):
                 fail(f"brick_eval disagrees with its plain version at C={C} "
                      f"P={P} {interp}: max {err_max} mean {err_mean}")
-            k_ms = time_cuda(torch, lambda: be.brick_eval(
+            t = measure(torch, lambda: be.brick_eval_volume(
                 *args, interp=interp), 200, 20)
-            p_ms = time_cuda(torch, lambda: be.brick_eval_reference(
+            p_ms = time_cuda(torch, lambda: be.brick_eval_volume_reference(
                 *args, interp=interp), 20, 3)
-            reached = int(be.pair_terms(*args, interp=interp)[2].sum())
+            reached = int(be.pair_terms(params, pix, windows, table,
+                                        interp=interp)[2].sum())
             ops = C * P * OPS_PAIR + reached * OPS_LOOKUP[interp]
-            nbytes = 4 * (32 + P * (pix.shape[1] + bricks.shape[1])
+            # params, pix, base and table read once, each window's 64 cells
+            # read once from the volume, the costs written once
+            nbytes = 4 * (32 + P * (pix.shape[1] + 3 + 64)
                           + C * table.shape[0] + C)
             t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
             shapes.append({
-                "C": C, "P": P, "interp": interp, "ms": k_ms,
+                "C": C, "P": P, "interp": interp,
+                "device_ms": t["device_ms"], "call_ms": t["call_ms"],
                 "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "max_abs_err": err_max, "mean_abs_err": err_mean,
                 "guarded": int((~keep).sum()),
                 "pairs_reaching_lookup": reached})
             print(f"[kernel] brick_eval C={C} P={P} {interp}: "
-                  f"max|d|={err_max:.3e} mean|d|={err_mean:.3e} "
-                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                  f"{max(t_ops, t_bytes):.4f} ms", flush=True)
-    main = [s for s in shapes if s["interp"] == tr.tsdf_interp]
+                  f"max|d|={err_max:.3e} mean|d|={err_mean:.3e} device "
+                  f"{t['device_ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms",
+                  flush=True)
+    main = [s for s in shapes if s["interp"] == slam.tracker.tsdf_interp]
     mean = lambda k: float(np.mean([s[k] for s in main]))  # noqa: E731
     by = [s["bound_by"] for s in main]
     return {
         "name": "brick_eval", "route": "cuda",
         "source": "remixfusion_tpu_torch/csrc/brick_eval.cu",
         "replaces": "remixfusion_tpu/ops/pallas/brick_eval.py:40",
-        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "ms": mean("device_ms"), "device_ms": mean("device_ms"),
+        "call_ms": mean("call_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
         "bound_by": max(set(by), key=by.count),
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
@@ -271,17 +328,23 @@ def phase_hash_kernel(torch, captured):
     shapes = []
     for enc, x, g, n_rows in captured:
         n, L = x.shape[0], enc.n_levels
-        got = he.hash_table_grad(enc, x, g, n_rows)
         ref = he.hash_table_grad_reference(enc, x, g, n_rows)
-        torch.cuda.synchronize()
         mask, idx, w = touched_rows(he, enc, x, n_rows)
-        if bool((got[~mask] != 0).any()) or bool((ref[~mask] != 0).any()):
-            fail(f"hash_table_grad: an untouched row is not zero (N={n})")
+        if bool((ref[~mask] != 0).any()):
+            fail(f"hash_table_grad plain version: an untouched row is not "
+                 f"zero (N={n})")
         scale = float(ref.abs().max())
-        err = float((got - ref).abs().max())
-        if not err <= HASH_TOL * scale:
-            fail(f"hash_table_grad disagrees with its plain version at N={n}"
-                 f": max |d| {err} > {HASH_TOL} * {scale}")
+
+        def check(out, what):
+            if bool((out[~mask] != 0).any()):
+                fail(f"{what}: an untouched row is not zero (N={n})")
+            e = float((out - ref).abs().max())
+            if not e <= HASH_TOL * scale:
+                fail(f"{what} disagrees with the plain version at N={n}: "
+                     f"max |d| {e} > {HASH_TOL} * {scale}")
+            return e
+
+        err = check(he.hash_table_grad(enc, x, g, n_rows), "hash_table_grad")
         vals = (w[..., None] * g.reshape(n, 1, L, 2)).reshape(-1, 2)
 
         def library():
@@ -289,11 +352,11 @@ def phase_hash_kernel(torch, captured):
                 0, idx, vals)
 
         lib_err = float((library() - ref).abs().max())
-        k_ms = time_cuda(torch, lambda: he.hash_table_grad(
-            enc, x, g, n_rows), 50, 5)
+        t = measure(torch, lambda: he.hash_table_grad(enc, x, g, n_rows),
+                    50, 5)
         p_ms = time_cuda(torch, lambda: he.hash_table_grad_reference(
             enc, x, g, n_rows), 10, 2)
-        l_ms = time_cuda(torch, library, 50, 5)
+        lib_t = measure(torch, library, 50, 5)
         # bytes: x and grad_out read once, the table gradient written once;
         # operations: ~34 FP32 per (point, level) for positions and
         # weights, 4 per corner for its weight and float2 contribution
@@ -301,28 +364,58 @@ def phase_hash_kernel(torch, captured):
         ops = n * L * (34 + 8 * 4)
         t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
         shapes.append({
-            "N": n, "levels": L, "rows": n_rows, "ms": k_ms,
-            "plain_ms": p_ms, "library_ms": l_ms,
+            "N": n, "levels": L, "rows": n_rows,
+            "device_ms": t["device_ms"], "call_ms": t["call_ms"],
+            "plain_ms": p_ms, "library_ms": lib_t["call_ms"],
+            "library_device_ms": lib_t["device_ms"],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": err, "max_abs_ref": scale,
             "library_max_abs_err": lib_err,
-            "rows_touched": int(mask.sum()), "atomics_float2": n * L * 8})
+            "rows_touched": int(mask.sum()),
+            "atomics_float2_unmerged": n * L * 8,
+            "privatized_rows": he.privatized_rows(enc)})
         print(f"[kernel] hash_table_grad N={n} L={L} rows={n_rows}: "
-              f"max|d|={err:.3e} (max|ref| {scale:.3e}) kernel {k_ms:.4f} "
-              f"ms, plain {p_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
-              f"{max(t_ops, t_bytes):.4f} ms ({n * L * 8} float2 atomics, "
-              f"{int(mask.sum())} rows touched)", flush=True)
+              f"max|d|={err:.3e} (max|ref| {scale:.3e}) device "
+              f"{t['device_ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
+              f"plain {p_ms:.4f} ms, index_add_ {lib_t['call_ms']:.4f} ms "
+              f"(device {lib_t['device_ms']:.4f}), bound "
+              f"{max(t_ops, t_bytes):.4f} ms ({int(mask.sum())} rows "
+              f"touched)", flush=True)
     mean = lambda k: sum(s[k] for s in shapes) / len(shapes)  # noqa: E731
     return {
         "name": "hash_table_grad", "route": "cuda",
         "source": "remixfusion_tpu_torch/csrc/hash_enc.cu",
         "replaces": "remixfusion_tpu/ops/pallas/hash_enc.py:139",
-        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "ms": mean("device_ms"), "device_ms": mean("device_ms"),
+        "call_ms": mean("call_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": shapes[0]["bound_by"],
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "library_ms": mean("library_ms"), "shapes": shapes,
     }
+
+
+def slice_b_captured(torch):
+    """phase_slice of slice B, keeping the inputs of its last two
+    table-gradient calls (its last map step: render points, then smoothness
+    points)."""
+    from collections import deque
+
+    from remixfusion_tpu_torch.ops import hash_enc as he
+
+    captured = deque(maxlen=2)
+    kernel = he.hash_table_grad
+
+    def capture(enc, x, g, n_rows):
+        captured.append((enc, x, g, n_rows))
+        return kernel(enc, x, g, n_rows)
+
+    he.hash_table_grad = capture
+    try:
+        slam, out, launches = phase_slice(torch, "B")
+    finally:
+        he.hash_table_grad = kernel
+    return slam, out, launches, list(captured)
 
 
 def main():
@@ -336,31 +429,14 @@ def main():
               "remixfusion_tpu_torch package is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from collections import deque
-
-    from remixfusion_tpu_torch.ops import hash_enc as he
-
     phase_build()
     slam, out_a, launches_a = phase_slice(torch, "A")
     brick = phase_kernels(torch, slam, out_a["frames"])
     del slam
     torch.cuda.empty_cache()
 
-    # keep the inputs of the last two table-gradient calls of slice B (its
-    # last map step: render points, then smoothness points)
-    captured = deque(maxlen=2)
-    kernel = he.hash_table_grad
-
-    def capture(enc, x, g, n_rows):
-        captured.append((enc, x, g, n_rows))
-        return kernel(enc, x, g, n_rows)
-
-    he.hash_table_grad = capture
-    try:
-        slam, out_b, launches_b = phase_slice(torch, "B")
-    finally:
-        he.hash_table_grad = kernel
-    hashk = phase_hash_kernel(torch, list(captured))
+    slam, out_b, launches_b, captured = slice_b_captured(torch)
+    hashk = phase_hash_kernel(torch, captured)
     brick["launches"] = launches_a["brick_eval"]
     brick["launches_by_slice"] = {"A": launches_a["brick_eval"],
                                   "B": launches_b["brick_eval"]}

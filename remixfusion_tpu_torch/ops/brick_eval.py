@@ -2,25 +2,29 @@
 
 Replaces the Pallas TPU kernel `remixfusion_tpu/ops/pallas/brick_eval.py`
 (`_kernel`, through its wrapper `brick_eval`): score C pose candidates
-against P tier pixels, each pixel carrying its own 4^3 TSDF window, and
-return mean |tsdf - expected| per candidate with the low-count guard.
+against P tier pixels, each pixel with its own 4^3 TSDF window, and return
+mean |tsdf - expected| per candidate with the low-count guard.
 
 The kernel is `csrc/brick_eval.cu` (built for sm_90a with nvcc, bound with
-ctypes). Its bound: ~70 FP32 operations per (candidate, pixel) pair against
-~1.4 MB moved at the finest tier (C=1024, P=4800: ~4.9 M pairs, ~5 us at
-67 TFLOP/s), so it is compute-bound and, at these sizes, a single launch is
-dominated by launch latency. The design keeps each candidate's pose in
-registers (one thread per candidate), stages 64-pixel tiles in shared memory
-and splits the pixel axis over a second grid dimension so that C = 1024
-still fills the card; a second small kernel reduces the per-split partials
-in a fixed order (no atomics, reproducible bits) and applies the guard. No
-PyTorch call computes this function, so there is no library yardstick.
+ctypes); its header gives the bound and the design. Its entry is
+`brick_eval_volume`, the tracker's: each pixel's window is gathered from
+the brick-major volume inside the kernel at the pixel's integer base and
+rounded through bfloat16 (the quad-pack mirror of the TPU path is not
+ported: it only fed VMEM). One launch per call, deterministic (fixed-order
+reduction, no atomics on the sums). Its plain version is `fetch_windows`
+followed by `brick_eval_reference`. No PyTorch call computes this function,
+so there is no library yardstick.
 
-`brick_eval` keeps the JAX argument layout: params f32[32], pix f32[P, >=8]
-(gx gy gz gt bx by bz ok), bricks f32[P, >=64] (cells (dx*4+dy)*4+dz), table
-f32[>=6, C] (rows tx ty tz qx qy qz). Unlike the TPU kernel it takes any P
-and C (no 128 padding) and any row width >= 8 / 64. On a CPU tensor it runs
-`brick_eval_reference`; on a CUDA tensor it launches the kernel or raises.
+`brick_eval` takes the JAX wrapper's layout, windows given as bricks
+[P, >=64], and runs `brick_eval_reference` on CPU tensors: the function
+held against the JAX `brick_eval`. It has no kernel and raises on a CUDA
+tensor.
+
+Argument layout: params f32[32], pix f32[P, >=8] (gx gy gz gt bx by bz ok),
+table f32[>=6, C] (rows tx ty tz qx qy qz); windows in cell order
+(dx*4+dy)*4+dz. Unlike the TPU kernel it takes any P and C (no 128 padding)
+and any row width >= 8. On a CPU tensor `brick_eval_volume` runs its plain
+version; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,10 +33,17 @@ import ctypes
 
 import torch
 
+from remixfusion_tpu_torch.ops.tsdf import bm_vox_flat
+
 BRICK_SIDE = 4
 BRICK_CELLS = BRICK_SIDE ** 3
-_THREADS = 128
-_TILE_PIX = 64
+# launch shape of csrc/brick_eval.cu: 256 threads a CTA, 2 candidates per
+# thread, the CTAs an SM holds (the kernel's __launch_bounds__), pixels per
+# tile
+_THREADS = 256
+_CAND_PER_THREAD = 2
+_CTAS_PER_SM = 3
+_TILE_PIX = 8
 
 
 def brick_eval_reference(params, pix, bricks, table, *,
@@ -131,72 +142,141 @@ def pair_terms(params, pix, bricks, table, *, interp: str = "nearest"):
     return vals, reached & in_brick, reached
 
 
+def fetch_windows(tsdf_bm, layout, base) -> torch.Tensor:
+    """Per-pixel 4^3 windows [P, 64] of the brick-major volume tsdf_bm
+    [NB, b^3] (layout (b, BY, BZ)) at integer bases [P, 3], cell order
+    (dx*4 + dy)*4 + dz, rounded through bfloat16 like the JAX track volume
+    and widened back to float32: the plain version's gather."""
+    d = torch.arange(BRICK_SIDE, device=base.device)
+    off = torch.stack(torch.meshgrid(d, d, d, indexing="ij"), -1).reshape(
+        1, BRICK_CELLS, 3)
+    vox = base[:, None, :].to(torch.int64) + off
+    idx = bm_vox_flat(layout, vox[..., 0], vox[..., 1], vox[..., 2])
+    return tsdf_bm.reshape(-1)[idx].to(torch.bfloat16).to(torch.float32)
+
+
+def brick_eval_volume_reference(params, pix, base, tsdf_bm, layout, table,
+                                *, interp: str = "nearest") -> torch.Tensor:
+    """Plain version of brick_eval_volume: the gather, then the windowed
+    plain version."""
+    return brick_eval_reference(params, pix,
+                                fetch_windows(tsdf_bm, layout, base), table,
+                                interp=interp)
+
+
 def _lib():
     from remixfusion_tpu_torch.ops import build
 
-    lib = build.load("brick_eval")
-    fn = lib.brick_eval_launch
+    fn = build.load("brick_eval").brick_eval_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, i, vp, i, vp, vp, vp, i, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, i, vp, ctypes.c_longlong, vp, i, i, i, vp,
+                       vp, vp, vp, i, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_shape(n_cand: int, n_pix: int, device) -> tuple:
-    """(splits, pixels per split): enough CTAs to cover every SM about twice
-    while each CTA keeps whole 64-pixel tiles."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    cblocks = -(-n_cand // _THREADS)
+def launch_shape(n_cand: int, n_pix: int, n_sm: int) -> tuple:
+    """(candidate blocks, splits, pixels per split): as many CTAs as the
+    SMs hold at once, each split a whole number of _TILE_PIX-pixel tiles
+    and none empty."""
+    cblocks = -(-n_cand // (_THREADS * _CAND_PER_THREAD))
     tiles = max(1, -(-n_pix // _TILE_PIX))
-    want = max(1, min(tiles, -(-2 * n_sm // cblocks)))
+    want = max(1, min(tiles, -(-_CTAS_PER_SM * n_sm // cblocks)))
     per = -(-tiles // want) * _TILE_PIX
-    return max(1, -(-n_pix // per)), per
+    return cblocks, max(1, -(-n_pix // per)), per
 
 
-def brick_eval(params, pix, bricks, table, *, interp: str = "nearest"):
-    """Cost [C] of every candidate (see module docstring)."""
+_done = {}  # device -> zeroed int32 counters, one per candidate block
+
+
+def _counters(dev, cblocks: int) -> torch.Tensor:
+    buf = _done.get(dev)
+    if buf is None or buf.numel() < cblocks:
+        buf = torch.zeros(max(cblocks, 64), dtype=torch.int32, device=dev)
+        _done[dev] = buf
+    return buf
+
+
+def _check(params, pix, table, interp, extra):
     if interp not in ("nearest", "trilinear"):
         raise ValueError(f"interp must be 'nearest' or 'trilinear', "
                          f"got {interp!r}")
-    n_pix, n_cand = pix.shape[0], table.shape[1]
     if (params.shape != (32,) or pix.dim() != 2 or pix.shape[1] < 8
-            or bricks.dim() != 2 or bricks.shape[0] != n_pix
-            or bricks.shape[1] < BRICK_CELLS or table.dim() != 2
-            or table.shape[0] < 6):
+            or table.dim() != 2 or table.shape[0] < 6):
         raise ValueError(
             f"brick_eval shapes: params {tuple(params.shape)}, pix "
-            f"{tuple(pix.shape)}, bricks {tuple(bricks.shape)}, table "
-            f"{tuple(table.shape)}")
-    tensors = (params, pix, bricks, table)
+            f"{tuple(pix.shape)}, table {tuple(table.shape)}")
+    tensors = (params, pix, table, extra)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("brick_eval takes float32 tensors")
     dev = pix.device
     if any(t.device != dev for t in tensors):
         raise ValueError("brick_eval inputs must share one device")
-    if dev.type == "cpu":
-        return brick_eval_reference(params, pix, bricks, table,
-                                    interp=interp)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"brick_eval: unsupported device {dev}")
-    if not (params.is_contiguous() and table.is_contiguous()
-            and pix.stride(1) == 1 and bricks.stride(1) == 1):
-        raise ValueError("brick_eval needs contiguous params/table and "
-                         "unit-stride rows in pix/bricks")
+    return dev
 
-    splits, per = _launch_shape(n_cand, n_pix, dev)
-    partial = torch.empty((splits, 2, n_cand), dtype=torch.float32,
-                          device=dev)
+
+def brick_eval_volume(params, pix, base, tsdf_bm, layout, table, *,
+                      interp: str = "nearest"):
+    """Cost [C] of every candidate, each pixel's window read from the
+    brick-major volume tsdf_bm [NB, b^3] (layout (b, BY, BZ)) at its
+    integer base (int32 [P, 3]) and rounded through bfloat16 — the tracker's
+    entry. Every window must lie inside the volume (the tracker clamps its
+    bases so). On a CPU tensor: brick_eval_volume_reference; on a CUDA
+    tensor: the kernel, or an error."""
+    from remixfusion_tpu_torch.ops import build
+
+    dev = _check(params, pix, table, interp, tsdf_bm)
+    b, BY, BZ = (int(v) for v in layout)
+    if (base.dtype != torch.int32 or base.shape != (pix.shape[0], 3)
+            or base.device != dev or tsdf_bm.dim() != 2
+            or tsdf_bm.shape[1] != b ** 3):
+        raise ValueError(
+            f"brick_eval_volume: base {base.dtype} {tuple(base.shape)}, "
+            f"volume {tuple(tsdf_bm.shape)}, layout {(b, BY, BZ)}")
+    if dev.type == "cpu":
+        return brick_eval_volume_reference(params, pix, base, tsdf_bm,
+                                           (b, BY, BZ), table, interp=interp)
+    if not (params.is_contiguous() and table.is_contiguous()
+            and pix.stride(1) == 1 and base.is_contiguous()
+            and tsdf_bm.is_contiguous()):
+        raise ValueError("brick_eval_volume needs contiguous params, table, "
+                         "base and volume, and unit-stride rows in pix")
+    n_pix, n_cand = pix.shape[0], table.shape[1]
     out = torch.empty((n_cand,), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    if n_pix == 0:  # no pixel counts: cost 0, guard 0 >= 0 holds
+        return out.zero_()
+    cblocks, splits, per = launch_shape(n_cand, n_pix, build.sm_count(dev))
+    partial = torch.empty((splits * (2 * n_cand + cblocks),),
+                          dtype=torch.float32, device=dev)
     rc = _lib()(params.data_ptr(), pix.data_ptr(), pix.stride(0),
-                bricks.data_ptr(), bricks.stride(0), table.data_ptr(),
-                partial.data_ptr(), out.data_ptr(), n_cand, n_pix, splits,
-                per, int(interp == "trilinear"), stream)
+                tsdf_bm.data_ptr(), tsdf_bm.stride(0), base.data_ptr(), b,
+                BY, BZ, table.data_ptr(), partial.data_ptr(),
+                _counters(dev, cblocks).data_ptr(), out.data_ptr(), n_cand,
+                n_pix, splits, per, int(interp == "trilinear"),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"brick_eval kernel launch failed: CUDA error {rc}")
-    brick_eval.launches += 1
+    brick_eval_volume.launches += 1
     return out
 
 
-brick_eval.launches = 0
+brick_eval_volume.launches = 0
+
+
+def brick_eval(params, pix, bricks, table, *, interp: str = "nearest"):
+    """Cost [C] of every candidate, with the windows given as bricks
+    [P, >=64] (the JAX wrapper's layout; used as they are): the plain
+    version, on CPU tensors only; a CUDA tensor raises (the kernel's entry
+    is brick_eval_volume)."""
+    dev = _check(params, pix, table, interp, bricks)
+    if (bricks.dim() != 2 or bricks.shape[0] != pix.shape[0]
+            or bricks.shape[1] < BRICK_CELLS):
+        raise ValueError(f"brick_eval shapes: pix {tuple(pix.shape)}, "
+                         f"bricks {tuple(bricks.shape)}")
+    if dev.type != "cpu":
+        raise ValueError("brick_eval has no kernel for windows given as a "
+                         "tensor: on a CUDA device use brick_eval_volume")
+    return brick_eval_reference(params, pix, bricks, table, interp=interp)

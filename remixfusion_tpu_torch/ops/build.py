@@ -107,3 +107,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
         return lib
+
+
+_sm_counts: Dict[str, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per process
+    (launch shapes need it on every call)."""
+    key = str(device)
+    n = _sm_counts.get(key)
+    if n is None:
+        import torch
+
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[key] = n
+    return n

@@ -12,16 +12,16 @@ it as a one-hot segment-sum on the MXU with bf16 operands; the port holds
 the f32 gradient (what tiny-cuda-nn and the JAX `hash_impl: xla` path
 compute).
 
-The kernel is `csrc/hash_enc.cu` (sm_90a, nvcc, ctypes): one thread per
-(point, level), neighbouring threads on neighbouring levels of one point so
-the grad_out read is coalesced; each thread recomputes its 8 corner rows and
-weights from x with the forward's own arithmetic and adds 8 float2
-contributions with atomicAdd. Recomputing means the backward keeps only x
-and the table, not [8, N, L] index and weight tensors (~250 MB at 242k
-points). Its bound is bytes: x (12 B) + grad_out (128 B at 16 levels) per
-point plus the table write, ~35 MB or ~10 us at 3.35 TB/s per map-step
-backward; its ~31M atomics contend on the dense coarse levels (level 0 has
-4096 rows, ~500 hits per row). The table (6.3 MB) stays in the 50 MB L2.
+The kernel is `csrc/hash_enc.cu` (sm_90a, nvcc, ctypes); its header gives
+the bound and the design: persistent CTAs over contiguous point ranges,
+equal rows combined per warp before each add, level 0 accumulated in
+shared memory and flushed once per CTA, the other levels added with float2
+atomicAdd, and each (point, level)'s 8 corner rows and
+weights recomputed from x with the forward's own arithmetic. Recomputing
+means the backward keeps only x and the table, not [8, N, L] index and
+weight tensors (~250 MB at 242k points). Its bound is bytes: x (12 B) +
+grad_out (128 B at 16 levels) per point plus the table write, ~27 MB or
+~8 us at 3.35 TB/s for the render backward.
 
 Index math, bit for bit the JAX package's (encodings.py:118-156):
 pos = x * scale_l + 0.5 rounded once (XLA contracts it into a fused
@@ -170,9 +170,27 @@ def _lib():
     fn = build.load("hash_enc").hash_table_grad_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+# Persistent CTAs per SM of the kernel (512 threads each), and Hopper's
+# shared memory (sm_90: 228 KB per SM, 1 KB reserved per block) less the
+# kernel's static share (g and x of a 32-point chunk): what one CTA may use
+# for level 0's accumulators. PERF.md has the sweep that chose level 0 in
+# shared memory at 3 CTAs per SM on an H100.
+_CTAS_PER_SM = 3
+_SMEM_PER_CTA = 233472 // _CTAS_PER_SM - 1024 - 4 * (32 * 66 + 32 * 3)
+_CHUNK = 32  # points per chunk of a CTA
+
+
+def privatized_rows(enc) -> int:
+    """Rows of level 0, accumulated in shared memory by the kernel (they
+    are the table's first rows), or 0 where they do not fit one CTA's
+    share."""
+    rows = enc.offsets[1]
+    return rows if rows * 8 <= _SMEM_PER_CTA else 0
 
 
 def hash_table_grad(enc, x, grad_out, n_rows: int):
@@ -197,6 +215,8 @@ def hash_table_grad(enc, x, grad_out, n_rows: int):
         raise ValueError(f"hash_table_grad: unsupported device {dev}")
     if n_rows != enc.table_size:
         raise ValueError("hash_table_grad: n_rows is not the table size")
+    from remixfusion_tpu_torch.ops import build
+
     x = x.contiguous()
     grad_out = grad_out.contiguous()
     lv = level_tensors(enc, dev)
@@ -204,8 +224,10 @@ def hash_table_grad(enc, x, grad_out, n_rows: int):
     n = x.shape[0]
     if n == 0:
         return dtable
+    n_ctas = min(build.sm_count(dev) * _CTAS_PER_SM, -(-n // _CHUNK))
     rc = _lib()(x.data_ptr(), grad_out.data_ptr(), dtable.data_ptr(),
                 lv["scales"].data_ptr(), lv["kernel"].data_ptr(), n, L,
+                privatized_rows(enc), n_ctas,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(

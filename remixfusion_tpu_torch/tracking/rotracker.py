@@ -5,11 +5,11 @@ mode, eval_mode 'pallas' (reference model/ROtracker.py:33-971). A frame runs
 `particle_iter_lens` iterations. Each one picks the candidate tier from the
 success count (count % 3 -> 10240/3072/1024 candidates at image strides
 32/16/8, pst.TIFF_INDEX / pst.DEPTH_LEVEL), computes the tier's vertices and
-normals at its pixel subgrid (gathered from per-frame maps), gathers each
-pixel's 4^3
-TSDF window from the brick-major volume (rounded through bfloat16 like the
-JAX track volume), scores every candidate with the `brick_eval` kernel, and
-updates the pose with the weighted mean of the improving candidates.
+normals at its pixel subgrid (gathered from per-frame maps) and each
+pixel's window base, scores every candidate with the `brick_eval` kernel,
+which reads each pixel's 4^3 TSDF window from the brick-major volume itself
+(rounded through bfloat16 like the JAX track volume), and updates the pose
+with the weighted mean of the improving candidates.
 
 The JAX tracker keeps the loop on the device (fori_loop + lax.switch over
 three static-shape tiers). Here the tier's shape (C, P) depends on the
@@ -26,8 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from remixfusion_tpu_torch.ops.brick_eval import BRICK_SIDE, brick_eval
-from remixfusion_tpu_torch.ops.tsdf import bm_vox_flat
+from remixfusion_tpu_torch.ops.brick_eval import (BRICK_SIDE,
+                                                  brick_eval_volume)
 from remixfusion_tpu_torch.tracking import pst as pst_mod
 
 
@@ -112,11 +112,8 @@ class ROTracker:
             torch.tensor([float(self.W), float(self.H), inv_vox],
                          dtype=torch.float32, device=dev),
             torch.zeros(7, dtype=torch.float32, device=dev)])
-        self._dims_hi = torch.tensor(self.vol_dims, device=dev) - 1 \
-            - BRICK_SIDE
-        d = torch.arange(BRICK_SIDE, device=dev)
-        self._win_off = torch.stack(torch.meshgrid(d, d, d, indexing="ij"),
-                                    -1).reshape(1, -1, 3)  # [1, 64, 3]
+        self._dims_hi = torch.tensor(self.vol_dims, dtype=torch.int32,
+                                     device=dev) - 1 - BRICK_SIDE
         self._subgrids = {}
 
     # -------------------------------------------------- frame preparation
@@ -212,38 +209,28 @@ class ROTracker:
         pix_ok = (n != 0).any(-1) & (v[:, :3] != 0).any(-1)
         return v, n, pix_ok
 
-    def _fetch_windows(self, tsdf_bm, base):
-        """Per-pixel 4^3 TSDF windows [P, 64] at base [P, 3] (cell order
-        (dx*4 + dy)*4 + dz), rounded through bfloat16 like the JAX track
-        volume (slam/pipeline.py track_dtype) and widened back to f32."""
-        vox = base[:, None, :] + self._win_off
-        idx = bm_vox_flat(self.brick_layout, vox[..., 0], vox[..., 1],
-                          vox[..., 2])
-        win = tsdf_bm.reshape(-1)[idx]
-        return win.to(torch.bfloat16).to(torch.float32)
-
     # ------------------------------------------------- candidate evaluation
 
-    def tier_inputs(self, level, level_index, R, T, ss, vn, tsdf_bm,
-                    origin):
-        """brick_eval's (params f32[32], pix f32[P, 8], windows f32[P, 64])
-        for one tier (_eval_tier_pallas's preparation); vn from
-        vertex_normal_maps."""
+    def tier_inputs(self, level, level_index, R, T, ss, vn, origin):
+        """brick_eval_volume's (params f32[32], pix f32[P, 8], base int32
+        [P, 3]) for one tier (_eval_tier_pallas's preparation, without the
+        window gather: the kernel reads the windows at base from the
+        volume); vn from vertex_normal_maps."""
         v, _, pix_ok = self._tier_pixels(vn, level, level_index)
         g = (v[:, None, :3] * R[None, :, :]).sum(-1)  # R @ v, full f32
         gt = v[:, 3]
         inv_vox = self._inv_vox
         p0 = g + T[None, :]
-        v0 = torch.round((p0 - origin[None, :]) * inv_vox).to(torch.int64)
+        v0 = torch.round((p0 - origin[None, :]) * inv_vox).to(torch.int32)
+        # every window lies inside the volume
         base = torch.minimum(torch.clamp(v0 - BRICK_SIDE // 2, min=1),
                              self._dims_hi)
-        bricks = self._fetch_windows(tsdf_bm, base)
         # bases shifted into round(x / voxel) integer-voxel coordinates
         base_eff = base.to(torch.float32) + origin[None, :] * inv_vox
         pix = torch.cat([g, gt[:, None], base_eff,
                          pix_ok.to(torch.float32)[:, None]], -1)
         params = torch.cat([R.reshape(-1), T, ss, self._param_tail])
-        return params, pix, bricks
+        return params, pix, base
 
     # ------------------------------------------------------ transform step
 
@@ -309,11 +296,12 @@ class ROTracker:
         for i in range(self.particle_iter_lens):
             cls = count % 3
             slab = self.slab_table[count]
-            params, pix, bricks = self.tier_inputs(
-                self.class_level[cls], level_index, R, T, ss, vn, tsdf_bm,
-                origin)
-            value = brick_eval(params, pix, bricks, self.pst_t[cls][slab],
-                               interp=self.tsdf_interp)
+            params, pix, base = self.tier_inputs(
+                self.class_level[cls], level_index, R, T, ss, vn, origin)
+            value = brick_eval_volume(params, pix, base, tsdf_bm,
+                                      self.brick_layout,
+                                      self.pst_t[cls][slab],
+                                      interp=self.tsdf_interp)
             success_t, min_tsdf, mean_t, mean_q = self._cal_transform(
                 value, self.pst[cls][slab], ss)
             origin_val = value[0]

@@ -63,21 +63,85 @@ def brick_eval_inputs(n_cand, n_pix, seed, interp):
     return params, pix, bricks, table
 
 
+def brick_volume_inputs(n_cand, n_pix, seed, interp):
+    """brick_eval_inputs' camera, candidates and pixels, with each pixel's
+    window read from a brick-major volume (10^3 bricks, 100 x 100 x 70
+    voxels) of a noisy smooth field that bfloat16 does not hold exactly, at
+    integer bases clamped inside the volume as the tracker clamps them:
+    (params, pix, base int32 [P, 3], tsdf_bm [NB, 1000], layout, table)."""
+    params, pix, _, table = brick_eval_inputs(n_cand, n_pix, seed, interp)
+    rng = np.random.default_rng(seed + 1)
+    b, dims = 10, np.array([100, 100, 70])
+    inv_vox, origin = params[24], np.array([-2.0, -2.0, 0.0], np.float32)
+    base = np.round((pix[:, :3] - origin) * inv_vox).astype(np.int64) - 2
+    base = np.clip(base, 1, dims - 1 - 4).astype(np.int32)
+    pix[:, 4:7] = base + origin * inv_vox
+    ii = np.stack(np.meshgrid(*(np.arange(d) for d in dims),
+                              indexing="ij"), -1)
+    dense = (np.sin(0.3 * ii.sum(-1)) + 0.1 * rng.standard_normal(
+        tuple(dims))).astype(np.float32)
+    X, Y, Z = (int(d) for d in dims)
+    tsdf_bm = np.ascontiguousarray(dense.reshape(
+        X // b, b, Y // b, b, Z // b, b).transpose(0, 2, 4, 1, 3, 5)
+        .reshape(-1, b ** 3))
+    return params, pix, base, tsdf_bm, (b, Y // b, Z // b), table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["nearest", "trilinear"])
+@pytest.mark.parametrize("n_cand,n_pix", [(10240, 300), (3072, 1200),
+                                          (1024, 4800)])
+def test_brick_eval_volume_kernel_matches_plain(cuda_device, interp, n_cand,
+                                                n_pix):
+    """The tracker's entry at the tier shapes: windows gathered in the
+    kernel (crossing brick faces on every axis), one launch per call, the
+    same bits on a second call."""
+    params, pix, base, tsdf_bm, layout, table = brick_volume_inputs(
+        n_cand, n_pix, 13, interp)
+    assert ((base % layout[0]) > layout[0] - 4).any(0).all()
+    params, pix, base, tsdf_bm, table = (
+        torch.from_numpy(a).to(cuda_device)
+        for a in (params, pix, base, tsdf_bm, table))
+    before = be.brick_eval_volume.launches
+    out = be.brick_eval_volume(params, pix, base, tsdf_bm, layout, table,
+                               interp=interp)
+    again = be.brick_eval_volume(params, pix, base, tsdf_bm, layout, table,
+                                 interp=interp)
+    torch.cuda.synchronize()
+    assert be.brick_eval_volume.launches == before + 2
+    assert torch.equal(out, again)
+    ref = be.brick_eval_volume_reference(params, pix, base, tsdf_bm, layout,
+                                         table, interp=interp)
+    assert torch.equal(out >= 1e6, ref >= 1e6)
+    keep = out < 1e6
+    d = (out - ref).abs()[keep]
+    assert d.max().item() < 5e-3 and d.mean().item() < 1e-4
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("interp", ["nearest", "trilinear"])
 def test_brick_eval_kernel_matches_plain(cuda_device, interp):
-    params, pix, bricks, table = (
-        torch.from_numpy(a).to(cuda_device)
-        for a in brick_eval_inputs(1024, 4800, 11, interp))
-    before = be.brick_eval.launches
-    out = be.brick_eval(params, pix, bricks, table, interp=interp)
+    """The kernel against its plain version at the finest tier's shape; the
+    windowed entry has no kernel and raises on the card."""
+    params, pix, base, tsdf_bm, layout, table = brick_volume_inputs(
+        1024, 4800, 11, interp)
+    bricks = be.fetch_windows(torch.from_numpy(tsdf_bm), layout,
+                              torch.from_numpy(base))
+    params, pix, base, tsdf_bm, table, bricks = (
+        torch.as_tensor(a).to(cuda_device)
+        for a in (params, pix, base, tsdf_bm, table, bricks))
+    before = be.brick_eval_volume.launches
+    out = be.brick_eval_volume(params, pix, base, tsdf_bm, layout, table,
+                               interp=interp)
     torch.cuda.synchronize()
-    assert be.brick_eval.launches == before + 1
+    assert be.brick_eval_volume.launches == before + 1
     ref = be.brick_eval_reference(params, pix, bricks, table, interp=interp)
     assert torch.equal(out >= 1e6, ref >= 1e6)
     keep = out < 1e6
     d = (out - ref).abs()[keep]
     assert d.max().item() < 5e-3 and d.mean().item() < 1e-4
+    with pytest.raises(ValueError):
+        be.brick_eval(params, pix, bricks, table, interp=interp)
 
 
 def hash_grad_inputs(n_pts, seed):
@@ -110,4 +174,39 @@ def test_hash_table_grad_kernel_matches_plain(cuda_device, n_pts):
     scale = ref.abs().max().item()
     assert (out - ref).abs().max().item() <= 1e-5 * scale
     # rows no point touched stay exactly zero in both
+    assert torch.equal(out == 0, ref == 0)
+
+
+def ray_points(n_rays, n_samples, seed):
+    """Ray-major samples as a render batch orders them: n_samples points
+    along each of n_rays rays through the unit cube."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.1, 0.9, (n_rays, 1, 3))
+    d = rng.standard_normal((n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 0.4, (n_rays, n_samples, 1)), axis=1)
+    return (o + t * d).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rays,n_samples", [(2048, 74), (512, 9)])
+def test_hash_table_grad_ray_ordered_matches_plain(cuda_device, n_rays,
+                                                   n_samples):
+    """Ray-ordered points (2048 rays x 74 samples: the render backward at
+    the bench widths), so neighbouring lanes share rows: the shared-memory
+    level 0 and the run-combined levels both carry repeated rows."""
+    from remixfusion_tpu_torch.ops import hash_enc as he
+
+    enc, _, _ = hash_grad_inputs(1, 5)
+    assert he.privatized_rows(enc) == enc.offsets[1]
+    x = ray_points(n_rays, n_samples, 7)
+    rng = np.random.default_rng(8)
+    g = (1e-3 * rng.standard_normal((x.shape[0], 32))).astype(np.float32)
+    x, g = torch.from_numpy(x).to(cuda_device), torch.from_numpy(g).to(
+        cuda_device)
+    out = he.hash_table_grad(enc, x, g, enc.table_size)
+    ref = he.hash_table_grad_reference(enc, x, g, enc.table_size)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-5 * scale
     assert torch.equal(out == 0, ref == 0)

@@ -124,3 +124,22 @@ def test_hash_table_grad_validates_inputs():
     with pytest.raises(TypeError):
         he.hash_table_grad(te, torch.from_numpy(x).double(),
                            torch.from_numpy(g), te.table_size)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(n_levels=16, base_resolution=16, log2_hashmap_size=16,
+          desired_resolution=200), 4096),
+    (ENCODERS["mixed"], 64),
+    (dict(n_levels=4, base_resolution=20, log2_hashmap_size=16), 8000),
+    (dict(n_levels=4, base_resolution=21, log2_hashmap_size=16), 0),
+    (dict(n_levels=16, base_resolution=32, log2_hashmap_size=19), 0),
+    (dict(n_levels=4, base_resolution=16, log2_hashmap_size=10), 1024)])
+def test_privatized_levels_fit_shared_memory(kw, want):
+    """The rows the table-gradient kernel accumulates in shared memory:
+    level 0's (the table's first rows, dense or hashed) where they fit one
+    CTA's share of an H100 SM at 3 CTAs per SM (67,968 B: 8,496 rows), else
+    none (4,096 rows, 32,768 B, at the bench widths)."""
+    enc = HashGridEncoding(**kw)
+    assert he.privatized_rows(enc) == want
+    if want:
+        assert want == enc.offsets[1]
