@@ -9,7 +9,9 @@ Phases, each of which must pass (the script exits non-zero otherwise and
 prints no result line):
   1. build: nvcc compiles every remixfusion_tpu_torch/csrc/*.cu (one process
      per source, started together) into build/kernels/; the ptxas register /
-     shared-memory lines are printed;
+     shared-memory lines are printed; g++ compiles the host sources
+     (csrc/*.cpp: marching tetrahedra, the depth rasterizer) into
+     build/host/;
   2. slice A: configs/Synthetic/synthetic_bench.yaml (CPGrid residual field)
      at full width (640x480, PST tiers 10240/3072/1024, 20 particle
      iterations, 300^3 local volume at 2 cm in 10^3 bricks, 200^3 global
@@ -17,7 +19,20 @@ prints no result line):
      N_FRAMES frames (the one cut): first-frame mapping, tracking, a mapping
      round every 5 frames. Kernel launch counts are zeroed just before and
      read just after: brick_eval launched 20 times per tracked frame,
-     hash_table_grad never; RO-only and full ATE below 2 cm;
+     hash_table_grad never; RO-only and full ATE below 2 cm. The run ends
+     in finalize, outside the timed loop: mesh.ply (the residual field's
+     SDF and weight queried on the card over the dense 3 cm grid of the
+     4 m marching-cubes bound, 134^3 = 2.41 M points; marching tetrahedra
+     on the host) and mesh_cull_occlusion.ply;
+  2b. mesh A: both meshes exist, are non-empty and have every vertex in
+     [-0.5, 4.5]^3; the card's SDF grid agrees with a CPU copy of the same
+     scene on a fixed 65,536-point subset of the grid within 1e-4 absolute
+     (device-only numerics, e.g. TF32, would show here);
+     tools/eval_recon.mesh_quality scores the culled mesh against the
+     analytic scene (accuracy, completion, ratios and F1 at 5 cm, the GT
+     culled with the poses of the frames run) and prints one JSON line
+     {"mesh": {...}} with the mesh stage times; F1 >= 0.90 (a sanity bar
+     for a 60-frame cut, not the quality target);
   3. kernel brick_eval (the tracker's entry, windows gathered from the
      brick-major volume inside the kernel) against its plain PyTorch version
      on the card, on the tier inputs of slice A's last frame, at the three
@@ -28,7 +43,8 @@ prints no result line):
      field, 16 levels, 2^16 hashed) the same way: brick_eval launched 20
      times per tracked frame, hash_table_grad twice per map iteration (the
      render points' and the smoothness points' backward), full ATE below 2
-     cm, the first-frame map loss falling and every parameter finite;
+     cm, the first-frame map loss falling and every parameter finite; then
+     its mesh phase as in 2b;
   5. kernel hash_table_grad against its plain version on the card, on the
      points and output gradients of slice B's last map step (render and
      smoothness shapes): max |d| <= 1e-5 * max |plain| (atomics reorder
@@ -57,6 +73,10 @@ CONFIGS = {"A": os.path.join(ROOT, "configs", "Synthetic",
                              "bench_hashgrid.yaml")}
 N_FRAMES = 60
 ATE_BAR_CM = 2.0
+MESH_BOX = (-0.5, 4.5)
+SDF_TOL = 1e-4
+SDF_SUBSET = 65536
+F1_BAR = 0.90
 TOL_MAX, TOL_MEAN = 5e-3, 1e-4
 HASH_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
@@ -137,6 +157,11 @@ def phase_build():
     logs = build.build_all()
     print(f"[build] {len(logs)} source(s) in {time.time() - t0:.1f} s",
           flush=True)
+    t0 = time.time()
+    for name in build.host_sources():
+        build.load_host(name)
+    print(f"[build] host sources {build.host_sources()} in "
+          f"{time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -154,7 +179,7 @@ def phase_slice(torch, label):
     from remixfusion_tpu_torch.slam import RemixFusionTorch
 
     cfg = load_config(CONFIGS[label])
-    cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke")
+    cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke", label)
     t0 = time.time()
     slam = RemixFusionTorch(cfg, device="cuda")
     slam.preload(N_FRAMES + 1)
@@ -206,6 +231,64 @@ def phase_slice(torch, label):
                for p in slam.scene.parameters()):
         fail(f"slice {label}: non-finite scene parameter")
     return slam, out, launches
+
+
+def phase_mesh(slam, out, label):
+    """The end-of-run mesh of slice `label`: files and bounds, the card's
+    SDF grid against a CPU recompute, and the mesh quality."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.tools.eval_recon import mesh_quality
+    from remixfusion_tpu_torch.utils.convert import scene_from_numpy, \
+        scene_to_numpy
+    from remixfusion_tpu_torch.utils.mesh import grid_points, query_points
+    from remixfusion_tpu_torch.utils.meshio import read_ply
+
+    counts = {}
+    for key in ("mesh_path", "mesh_cull_path"):
+        path = out[key]
+        if not os.path.exists(path):
+            fail(f"slice {label}: {path} was not written")
+        v, f = read_ply(path)
+        if v is None or f is None or not len(v) or not len(f):
+            fail(f"slice {label}: {path} is empty")
+        if not (np.isfinite(v).all() and (v >= MESH_BOX[0]).all()
+                and (v <= MESH_BOX[1]).all()):
+            fail(f"slice {label}: {path} has vertices outside "
+                 f"[{MESH_BOX[0]}, {MESH_BOX[1]}]^3")
+        counts[key] = (len(v), len(f))
+
+    sdf = slam.mesh_info["sdf"].reshape(-1)
+    _, pts = grid_points(slam.bound, slam.mc_bound,
+                         voxel_size=slam.config["mesh"]["voxel_final"])
+    if len(pts) != len(sdf):
+        fail(f"slice {label}: mesh grid has {len(sdf)} points, expected "
+             f"{len(pts)}")
+    idx = np.sort(np.random.default_rng(0).choice(len(pts), SDF_SUBSET,
+                                                  replace=False))
+    params, buffers = scene_to_numpy(slam.scene)
+    cpu = scene_from_numpy(slam.config, slam.bound, slam.num_kf, params,
+                           buffers, device="cpu")
+    ref = query_points(cpu.query_sdf_res, pts[idx], "cpu")
+    err = float(np.abs(ref - sdf[idx]).max())
+    if not err <= SDF_TOL:
+        fail(f"slice {label}: card SDF grid differs from the CPU recompute "
+             f"by {err} > {SDF_TOL}")
+
+    t0 = time.time()
+    q = mesh_quality(slam.config, slam.out_dir, out["frames"], slam.dataset)
+    line = {"slice": label, "grid_points": len(pts),
+            "mesh_verts": counts["mesh_path"][0],
+            "mesh_faces": counts["mesh_path"][1],
+            "mesh_cull_faces": counts["mesh_cull_path"][1],
+            "sdf_cpu_max_abs_err": err,
+            "stage_ms": {k: out[f"mesh_{k}_ms"]
+                         for k in ("query", "marching", "write", "cull")},
+            "quality_eval_s": time.time() - t0, **q}
+    print(json.dumps({"mesh": line}), flush=True)
+    if not q["f1"] >= F1_BAR:
+        fail(f"slice {label}: mesh F1 {q['f1']} < {F1_BAR}")
+    return line
 
 
 def tier_cases(torch, slam, frames):
@@ -431,11 +514,13 @@ def main():
     sys.path.insert(0, ROOT)
     phase_build()
     slam, out_a, launches_a = phase_slice(torch, "A")
+    phase_mesh(slam, out_a, "A")
     brick = phase_kernels(torch, slam, out_a["frames"])
     del slam
     torch.cuda.empty_cache()
 
     slam, out_b, launches_b, captured = slice_b_captured(torch)
+    phase_mesh(slam, out_b, "B")
     hashk = phase_hash_kernel(torch, captured)
     brick["launches"] = launches_a["brick_eval"]
     brick["launches_by_slice"] = {"A": launches_a["brick_eval"],

@@ -12,8 +12,12 @@ Present slices: the online SLAM loop of RemixFusionTorch —
   - the mapping rounds: global keyframe grid, residual field (CPGrid, or
     HashGrid with the hand-written `hash_table_grad` CUDA kernel) and
     decoders, RBA bundle adjustment, the one-round-late pose write-back;
-  - the final trajectory and its full and RO-only ATE.
-Mesh extraction, resume state and the real-sensor loaders come later.
+  - the end of run: the final trajectory and its full and RO-only ATE,
+    the checkpoint, mesh.ply (the residual field queried on the dense mesh
+    grid on the device, marching tetrahedra in host C++ built with g++
+    into build/host/) and mesh_cull_occlusion.ply; tools/eval_recon scores
+    the mesh.
+Resume state and the real-sensor loaders come later.
 """
 
 from __future__ import annotations

@@ -188,6 +188,26 @@ class AnalyticSceneDataset(BaseDataset):
             d = np.minimum(d, outside + inside)
         return d.astype(np.float32)
 
+    def gt_mesh(self, voxel_size: float = 0.02):
+        """Analytic ground-truth mesh: marching tetrahedra on the exact SDF
+        sampled every voxel_size over the room (world coordinates)."""
+        from remixfusion_tpu_torch.ops.marching_cubes import marching_cubes
+
+        dims = self.room_dims
+        ns = [int(round(dims[i] / voxel_size)) + 1 for i in range(3)]
+        axes = [np.linspace(0, dims[i], ns[i], dtype=np.float32)
+                for i in range(3)]
+        grid = np.stack(
+            np.meshgrid(axes[0], axes[1], axes[2], indexing="ij"), -1)
+        flat = grid.reshape(-1, 3)
+        # chunked: large buildings evaluate tens of millions of points
+        sdf = np.concatenate(
+            [self.gt_sdf(flat[i:i + 4_000_000])
+             for i in range(0, len(flat), 4_000_000)]).reshape(ns)
+        verts, faces = marching_cubes(sdf, 0.0)
+        verts = verts * voxel_size
+        return verts.astype(np.float32), faces
+
     def _cache_key_parts(self) -> tuple:
         raise NotImplementedError
 

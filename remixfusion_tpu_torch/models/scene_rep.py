@@ -150,6 +150,31 @@ class SceneRepresentation(nn.Module):
             torch.cat([embedded, embedded_pos, tmp_tsdf[:, None]], -1))
         return h[..., 0] + tmp_tsdf
 
+    def query_sdf_ex(self, pts: torch.Tensor) -> torch.Tensor:
+        """Explicit-only SDF (the raw grid tsdf) at normalized points
+        (scene_rep.py:250-265)."""
+        return self.query_gbv(pts)[..., 0]
+
+    def query_w_res(self, pts: torch.Tensor) -> torch.Tensor:
+        """Fusion weight, the mesh's validity mask (scene_rep.py:269-282)."""
+        return self.query_gbw(pts)
+
+    def query_color_residual(self, pts: torch.Tensor) -> torch.Tensor:
+        """Residual-corrected color for mesh vertex coloring
+        (scene_rep.py:285-298). The decoder gets the explicit tsdf raw:
+        neither rescaled by c_trunc / trunc nor clamped, unlike
+        query_color_sdf."""
+        embedded = self.embed_res_fn(self._table(), pts)
+        embedded_pos = self.embedpos_fn(None, pts)
+        ex_trgb = self.query_gbv(pts)
+        raw = self.decoder_res(embedded, embedded_pos, ex_trgb[..., :1],
+                               ex_trgb[..., 1:])
+        return raw[..., :3] + ex_trgb[..., 1:]
+
+    def query_color_ex(self, pts: torch.Tensor) -> torch.Tensor:
+        """Explicit-only color (scene_rep.py:300-310)."""
+        return self.query_gbv(pts)[..., 1:]
+
     def query_color_sdf(self, pts: torch.Tensor, clamp: bool = False):
         """Joint query of the render path [N, 3] -> [N, 4] (rgb, sdf);
         `clamp` is the bundle-adjustment clamping of the explicit TSDF

@@ -1,11 +1,18 @@
-"""Build the port's CUDA sources with nvcc at first use and load them.
+"""Build the port's native sources at first use and load them with ctypes.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled into its
-own shared library, `build/kernels/lib<name>-<hash>.so` under the checkout
-root, and loaded with ctypes (no PyTorch headers: a build takes seconds).
-The hash covers the source and the flags, so an edited source never loads a
-stale library. `-Xptxas -v` output (registers, shared memory, spills) is kept
-beside the library as `<name>-<hash>.log`.
+Each `csrc/<name>.cu` (a CUDA kernel) exposes a plain C interface and is
+compiled by nvcc into its own shared library,
+`build/kernels/lib<name>-<hash>.so` under the checkout root (no PyTorch
+headers: a build takes seconds). `-Xptxas -v` output (registers, shared
+memory, spills) is kept beside the library as `<name>-<hash>.log`.
+
+Each `csrc/<name>.cpp` (host code: marching tetrahedra, the depth
+rasterizer) is compiled by g++ into `build/host/lib<name>-<hash>.so` with
+-O3 -march=native. A failed build raises with the compiler's output; there
+is no fallback to the plain numpy versions.
+
+The hash covers the source and the flags, so an edited source never loads
+a stale library.
 
 Nothing here runs at import time: the CPU tests import every module, and
 a machine without nvcc must still be able to.
@@ -24,11 +31,14 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
+HOST_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -106,6 +116,39 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, job)
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
+        return lib
+
+
+def host_sources() -> List[str]:
+    return sorted(f[:-4] for f in os.listdir(CSRC) if f.endswith(".cpp"))
+
+
+def _host_path(name: str):
+    src = os.path.join(CSRC, name + ".cpp")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(HOST_FLAGS).encode()).hexdigest()[:12]
+    return src, os.path.join(HOST_BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The ctypes handle of csrc/<name>.cpp, built with g++ on first use.
+    Raises with g++'s output when the build fails."""
+    with _lock:
+        lib = _host_libs.get(name)
+        if lib is None:
+            src, so = _host_path(name)
+            if not os.path.exists(so):
+                os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                out = subprocess.run(["g++", *HOST_FLAGS, "-o", tmp, src],
+                                     capture_output=True, text=True)
+                if out.returncode != 0:
+                    raise RuntimeError(f"g++ failed for {name}.cpp:\n"
+                                       f"{out.stderr}")
+                os.replace(tmp, so)
+            lib = ctypes.CDLL(so)
+            _host_libs[name] = lib
         return lib
 
 

@@ -157,6 +157,26 @@ def fuse_bricks_bm(state: VolumeState, ids, depth, rgb255, K, c2w, *,
     return state
 
 
+def truncated_points_mask(vol: VolumeState, trunc_tsdf: float = 0.5):
+    """Mask of near-surface voxels |tsdf| < trunc_tsdf with weight > 0
+    (reference `get_truncated_pc`); the compaction runs on the host."""
+    return (vol.tsdf > -trunc_tsdf) & (vol.tsdf < trunc_tsdf) \
+        & (vol.weight > 0)
+
+
+def extract_truncated_points(vol: VolumeState, voxel_size, trunc_margin,
+                             trunc_tsdf=0.5) -> np.ndarray:
+    """Near-surface voxels of a dense volume as [N, 7] numpy rows (voxel
+    center xyz, metric sdf, rgb 0..255)."""
+    mask = truncated_points_mask(vol, trunc_tsdf).cpu().numpy()
+    idx = np.argwhere(mask)
+    origin = vol.origin.cpu().numpy()
+    pts = origin[None, :] + (idx.astype(np.float32) + 0.5) * voxel_size
+    tsdf = vol.tsdf.cpu().numpy()[mask] * trunc_margin
+    rgb = vol.color.cpu().numpy()[mask]
+    return np.concatenate([pts, tsdf[:, None], rgb], axis=1)
+
+
 def bm_to_dense(arr: torch.Tensor, dims, b: int) -> torch.Tensor:
     """[NB, b^3, *C] brick-major -> [X, Y, Z, *C] dense."""
     X, Y, Z = dims

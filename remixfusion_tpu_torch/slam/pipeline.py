@@ -18,7 +18,12 @@ run.py, mp_slam/tracker.py, mp_slam/mapper.py:874-950), on one device:
     staleness, mapper.py:510-520);
   - finalize drains the rounds, applies the last write-back and composes
     the trajectory (non-keyframes relative to their keyframe): the full
-    ATE, all_poses.npy and tracking_result.txt. Mesh extraction comes later.
+    ATE, all_poses.npy and tracking_result.txt; then the checkpoint when
+    mapping.save_ckpt is set, mesh.ply (the residual field's SDF queried
+    on the dense grid at mesh.voxel_final on the device, marching
+    tetrahedra on the host) and mesh_cull_occlusion.ply (the mesh culled
+    with the trajectory and the dataset's depth). The mesh work runs after
+    the timed loop and reports its own stage times.
 
 Schedule (single-threaded, same decisions as the JAX pipeline): frame i's
 tracked pose is harvested `tracking.harvest_depth` frames later; frame i
@@ -50,9 +55,13 @@ from remixfusion_tpu_torch.mapping.keyframe import DeviceKeyFrameStore
 from remixfusion_tpu_torch.mapping.mapper import Mapper
 from remixfusion_tpu_torch.models.encodings import HashGridEncoding
 from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
+from remixfusion_tpu_torch.tools.cull_mesh import cull_one_mesh
 from remixfusion_tpu_torch.tools.eval_ate import evaluate_ate
 from remixfusion_tpu_torch.tracking.rotracker import ROTracker
 from remixfusion_tpu_torch.tracking.volume import MovingVolume
+from remixfusion_tpu_torch.utils.convert import scene_to_numpy
+from remixfusion_tpu_torch.utils.mesh import extract_mesh
+from remixfusion_tpu_torch.utils.meshio import write_ply_mesh
 
 DEPTH_SCALE = 1000.0  # sensor-native depth quantization (mm)
 MAX_DEPTH = 65.535    # u16 ceiling in meters
@@ -95,12 +104,16 @@ class RemixFusionTorch:
         vcfg = config["volume"]
         if int(vcfg.get("sel_reuse", 1)) != 1:
             raise NotImplementedError("volume.sel_reuse != 1 is not ported")
+        if config["mesh"].get("render_img"):
+            raise NotImplementedError(
+                "mesh.render_img (render-vs-GT images) is not ported")
         self.update_cam()
         self.dataset = get_dataset(config)
         n_frames = self.dataset.num_frames
         m = config["mapping"]
         self._kf_every = int(m["keyframe_every"])
         self.bound = np.asarray(m["bound"], np.float32)
+        self.mc_bound = np.asarray(m["marching_cubes_bound"], np.float32)
         self.num_kf = keyframe_capacity(n_frames, self._kf_every)
         # raw tracker poses (RO), the tracker + BA-refined poses (est) and
         # the keyframe-relative deltas of non-keyframes
@@ -148,6 +161,8 @@ class RemixFusionTorch:
         self.ba_iters_done = 0
         self.round_ms = []
         self.first_frame_losses = None
+        # stage times and grids of the last final mesh (save_mesh_final)
+        self.mesh_info = None
 
         if self.device.type == "cuda":
             # build + load the kernels now: set-up time, not loop time
@@ -285,6 +300,16 @@ class RemixFusionTorch:
                 c2w.astype(np.float64)
                 @ np.linalg.inv(self.RO_c2w_data[kf].astype(np.float64))
             ).astype(np.float32)
+        # local-volume mesh dumps (reference ROtracker.py:941-945)
+        ro = self.config["RO"]
+        if ro.get("save_volume") and (
+                frame_id % ro.get("save_freq", 1000) == 0
+                or frame_id == self.dataset.num_frames - 1):
+            ro_dir = os.path.join(self.out_dir, "RO")
+            os.makedirs(ro_dir, exist_ok=True)
+            verts, faces, norms, colors = self.mv.get_mesh()
+            write_ply_mesh(os.path.join(ro_dir, f"{frame_id}.ply"), verts,
+                           faces, colors=colors, normals=norms)
         self.tracking_idx = frame_id
 
     def _host_pose_estimate(self, frame_id: int) -> np.ndarray:
@@ -504,6 +529,20 @@ class RemixFusionTorch:
                     generator=self._gen)
         self._sync()
         self.round_ms.append(1000.0 * (time.perf_counter() - t0))
+        self._mesh_snapshots()
+
+    def _mesh_snapshots(self):
+        """Mesh snapshots after a round (reference mapper.py:909-921):
+        video.save every video.save_freq frames at 7.5 cm; mesh.vis every
+        mesh.vis frames at mesh.voxel_eval unless mesh.only_final."""
+        video = self.config.get("video", {})
+        if video.get("save") and self.mapping_idx % video.get(
+                "save_freq", 20) == 0:
+            self.save_mesh(self.mapping_idx, voxel_size=0.075)
+        mesh = self.config["mesh"]
+        if (mesh["vis"] and self.mapping_idx % mesh["vis"] == 0
+                and self.mapping_idx and not mesh["only_final"]):
+            self.save_mesh(self.mapping_idx, voxel_size=mesh["voxel_eval"])
 
     def _due_rounds(self, n: int):
         """Run the mapping rounds the harvested frontier has unlocked
@@ -547,8 +586,9 @@ class RemixFusionTorch:
         became due, then finalize. Frames are preloaded, so the per-frame
         time (host clock, ending in a device synchronise) covers tracking,
         fusion, host selection and the mapping rounds; it is taken over the
-        frames after `warmup`. Writes config.json, ro_poses.npy,
-        all_poses.npy, tracking_result.txt and tracking_result.json to the
+        frames after `warmup` (finalize's mesh work is outside it). Writes
+        config.json, ro_poses.npy, all_poses.npy, tracking_result.txt,
+        mesh.ply, mesh_cull_occlusion.ply and tracking_result.json to the
         output directory. Returns a stats dict."""
         os.makedirs(self.out_dir, exist_ok=True)
         with open(os.path.join(self.out_dir, "config.json"), "w") as f:
@@ -585,8 +625,12 @@ class RemixFusionTorch:
 
     def finalize(self, n: int, stats: dict) -> dict:
         """Harvest, drain the due mapping rounds, apply the last BA
-        write-back, and evaluate / write the trajectory of frames [0, n)
-        (reference mapper.py:930-950, up to the mesh)."""
+        write-back, evaluate / write the trajectory of frames [0, n), then
+        the checkpoint (mapping.save_ckpt), mesh.ply at mesh.voxel_final and
+        the culled mesh (reference mapper.py:930-950). A failure on the mesh
+        path raises. The stats gain the mesh stage times (ms: device query,
+        host marching, normals + write, culling) and counts."""
+        os.makedirs(self.out_dir, exist_ok=True)
         self._harvest()
         self._due_rounds(n)
         self._apply_pending_ba()
@@ -614,6 +658,25 @@ class RemixFusionTorch:
         with open(os.path.join(self.out_dir, "tracking_result.txt"),
                   "a") as f:
             f.write(line)
+        if self.config["mapping"]["save_ckpt"]:
+            self.save_ckpt(os.path.join(self.out_dir, "checkpoint.npz"))
+        info = {}
+        mesh_path = self.save_mesh_final(
+            voxel_size=self.config["mesh"]["voxel_final"], info=info)
+        if info["faces"] == 0:
+            raise RuntimeError("the final mesh is empty: no masked SDF "
+                               "below the isolevel")
+        t0 = time.perf_counter()
+        cull_path, cull_faces = self.post_process_mesh(mesh_path, poses)
+        stats.update({
+            "mesh_path": mesh_path, "mesh_cull_path": cull_path,
+            "mesh_verts": info["verts"], "mesh_faces": info["faces"],
+            "mesh_cull_faces": cull_faces,
+            "mesh_query_ms": info["query_ms"],
+            "mesh_marching_ms": info["marching_ms"],
+            "mesh_write_ms": info["write_ms"],
+            "mesh_cull_ms": 1000.0 * (time.perf_counter() - t0),
+        })
         ffl = self.first_frame_losses
         stats.update({
             "ate_rmse_cm": full["rmse"] * 100.0,
@@ -631,6 +694,75 @@ class RemixFusionTorch:
                   "w") as f:
             json.dump(stats, f, indent=2)
         return stats
+
+    # ------------------------------------------------------------ outputs
+
+    def _extract(self, path, voxel_size, explicit_only=False, info=None):
+        info = {} if info is None else info
+        verts, faces, _ = extract_mesh(
+            self.scene, self.config, self.bound, self.mc_bound,
+            voxel_size=voxel_size, mesh_savepath=path,
+            explicit_only=explicit_only, info=info)
+        info.update(verts=len(verts), faces=len(faces))
+        return path
+
+    def save_mesh(self, i, voxel_size=0.05):
+        return self._extract(
+            os.path.join(self.out_dir, f"mesh_track{int(i)}.ply"),
+            voxel_size)
+
+    def save_mesh_final(self, voxel_size=0.05, info=None):
+        """mesh.ply; `info` (also kept as self.mesh_info) receives the
+        stage times, the counts and the queried grids."""
+        self.mesh_info = {} if info is None else info
+        return self._extract(os.path.join(self.out_dir, "mesh.ply"),
+                             voxel_size, info=self.mesh_info)
+
+    def save_mesh_explicit(self, i, voxel_size=0.05):
+        return self._extract(
+            os.path.join(self.out_dir, f"mesh_track{int(i)}_ex.ply"),
+            voxel_size, explicit_only=True)
+
+    def post_process_mesh(self, mesh_path, poses_np, skip: int = 5,
+                          eps: float = 0.1):
+        """Occlusion-cull the mesh with the poses (every `skip`-th) and the
+        dataset's depth maps (reference mapper.py:809-821; the raw mesh is
+        kept). Returns (path of mesh_cull_occlusion.ply, kept faces)."""
+        c2w_list = [poses_np[i] for i in range(0, len(poses_np), skip)]
+        save_path = os.path.join(self.out_dir, "mesh_cull_occlusion.ply")
+        with record_function("mesh.cull"):
+            _, kept = cull_one_mesh(self.config, c2w_list, mesh_path,
+                                    save_path, skip, self.dataset,
+                                    depth_flag=True, remove_occlusion=True,
+                                    eps=eps)
+        return save_path, len(kept)
+
+    def _model_state_dict(self):
+        """The model fields of the checkpoint, under the JAX package's
+        names: gbv, gbw, the RBA buffers and param_<i> in the order of
+        jax.tree_util.tree_flatten(SceneParams) (hash_table, decoder, rba;
+        dict keys sorted)."""
+        params, buffers = scene_to_numpy(self.scene)
+
+        def leaves(tree):
+            if isinstance(tree, dict):
+                return [x for k in sorted(tree) for x in leaves(tree[k])]
+            return [tree]
+
+        flat = [x for part in ("hash_table", "decoder", "rba")
+                for x in leaves(params[part])]
+        rba = buffers["rba"]
+        return dict(gbv=buffers["gbv"], gbw=buffers["gbw"],
+                    rba_init_c2w=rba["init_c2w"], rba_init_r=rba["init_r"],
+                    rba_init_t=rba["init_t"],
+                    **{f"param_{i}": p for i, p in enumerate(flat)})
+
+    def save_ckpt(self, path):
+        """Model + pose checkpoint (reference mapper.py:257-265), with the
+        JAX package's keys."""
+        np.savez(path, pose=self.est_c2w_data, pose_rel=self.est_c2w_data_rel,
+                 **self._model_state_dict())
+        print(f"Saved checkpoint to {path}")
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -13,7 +13,11 @@ pipeline stage per frame (the slice.* spans of track_frame: harvest,
 select, upload, track, fuse, lookahead) and per mapping round (the map.*
 spans of mapping_round: integrate, map, ba, kfadd), the device's busy and
 idle share of the traced window, kernel launches per frame and the kernels
-that take the most device time. Needs a card; exits non-zero without one.
+that take the most device time. Then it traces the end of the run
+(RemixFusionTorch.finalize) and prints the host time of its mesh.* spans
+(query: the grid and vertex queries on the card; marching: host marching
+tetrahedra; write: normals + PLY; cull: occlusion culling) and the
+device's busy time there. Needs a card; exits non-zero without one.
 """
 
 import argparse
@@ -64,6 +68,12 @@ def main():
         wall_us = (time.perf_counter() - t0) * 1e6
     frames = n - first
     rounds = len(slam.round_ms) - rounds0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof_end:
+        t0 = time.perf_counter()
+        slam.finalize(n, {})
+        torch.cuda.synchronize()
+        end_us = (time.perf_counter() - t0) * 1e6
 
     def dev_time(e):
         return getattr(e, "self_device_time_total",
@@ -71,7 +81,7 @@ def main():
 
     def on_card(e):  # kernels and copies, not host ops or span ranges
         return ("CUDA" in str(e.device_type) and not e.key.startswith(
-            ("slice.", "map.", "aten::")))
+            ("slice.", "map.", "mesh.", "aten::")))
 
     avgs = prof.key_averages()
     stages = {e.key: e.cpu_time_total / frames / 1e3 for e in avgs
@@ -103,6 +113,17 @@ def main():
             e.count for e in avgs
             if on_card(e) and "hash_table_grad_kernel" in e.key),
         "top_device_kernels_ms_per_frame": kernels[:15],
+        "end_of_run": {
+            "wall_ms": end_us / 1e3,
+            "mesh_stage_host_ms": {
+                e.key: e.cpu_time_total / 1e3
+                for e in prof_end.key_averages()
+                if e.key.startswith("mesh.") and not on_card(e)
+                and e.cpu_time_total > 0},
+            "device_busy_ms": sum(dev_time(e) for e in
+                                  prof_end.key_averages()
+                                  if on_card(e)) / 1e3,
+        },
     }
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_slice.json"), "w") as f:

@@ -21,6 +21,8 @@ import torch
 
 from remixfusion_tpu_torch import host_to_device
 from remixfusion_tpu_torch.ops import tsdf as tsdf_ops
+from remixfusion_tpu_torch.ops.marching_cubes import marching_cubes, \
+    vertex_normals
 
 
 class MovingVolume:
@@ -245,6 +247,29 @@ class MovingVolume:
             weight=tsdf_ops.dense_to_bm(vs.weight, b).contiguous(),
             color=tsdf_ops.dense_to_bm(vs.color, b).contiguous(),
             origin=vs.origin)
+
+    # ------------------------------------------------------------- export
+
+    def get_mesh(self):
+        """Local-volume mesh (reference Volume.py:1280-1313: unmasked
+        marching at level 0 on the dense view, nearest-voxel colors):
+        (world verts, faces, normals, colors uint8)."""
+        dense = self.dense_state()
+        t = dense.tsdf.cpu().numpy()
+        c = dense.color.cpu().numpy()
+        verts, faces = marching_cubes(t, 0.0)
+        vi = np.clip(np.round(verts).astype(int), 0,
+                     np.asarray(self.dims) - 1)
+        colors = c[vi[:, 0], vi[:, 1], vi[:, 2]].astype(np.uint8)
+        verts_w = verts * self.voxel_size + self.state.origin.cpu().numpy()
+        norms = vertex_normals(verts_w, faces)
+        return verts_w, faces, norms, colors
+
+    def get_truncated_pc(self, trunc_tsdf: float = 0.5) -> np.ndarray:
+        """Near-surface voxels as [N, 7] rows (xyz, sdf, rgb)."""
+        return tsdf_ops.extract_truncated_points(
+            self.dense_state(), self.voxel_size, self.trunc_margin,
+            trunc_tsdf)
 
     def brick_layout(self):
         """(b, BY, BZ) index spec for brick-major readers."""

@@ -7,11 +7,17 @@ Loads the config (inherit_from chaining, no PyYAML needed), runs the online
 SLAM loop of remixfusion_tpu_torch on the GPU (or the CPU when asked):
 first-frame mapping, tracking + local fusion of every frame, a mapping
 round (global keyframe integrate, residual-field map steps, RBA bundle
-adjustment) every mapping.map_every frames, and the final trajectory. Prints
-the full ATE (after BA), the RO-only ATE, the time per frame and per
-mapping round. Writes config.json, all_poses.npy, ro_poses.npy,
-tracking_result.txt and tracking_result.json to <output>/<exp_name>/. Mesh
-extraction comes with a later slice of the port.
+adjustment) every mapping.map_every frames, the final trajectory, then the
+final mesh (the residual field queried on the dense grid at
+mesh.voxel_final on the device, marching tetrahedra on the host) and the
+mesh culled with the trajectory and the dataset's depth. Prints the full
+ATE (after BA), the RO-only ATE, the time per frame and per mapping round,
+the mesh paths with their vertex and face counts and the mesh stage times.
+Writes config.json, all_poses.npy, ro_poses.npy, tracking_result.txt,
+mesh.ply, mesh_cull_occlusion.ply and tracking_result.json to
+<output>/<exp_name>/. Score the mesh of a synthetic run with
+`python -m remixfusion_tpu_torch.tools.eval_recon --config <yaml>
+--run_dir <output>/<exp_name> --frames N`.
 """
 
 import argparse
@@ -43,6 +49,13 @@ def main():
           f"ms_per_round={out['ms_per_round']:.3f}")
     print(f"# ate_rmse_cm={out['ate_rmse_cm']:.3f} "
           f"ate_rmse_cm_ro_only={out['ate_rmse_cm_ro_only']:.3f}")
+    print(f"# mesh={out['mesh_path']} verts={out['mesh_verts']} "
+          f"faces={out['mesh_faces']}")
+    print(f"# mesh_cull={out['mesh_cull_path']} "
+          f"faces={out['mesh_cull_faces']}")
+    print(f"# mesh ms: query={out['mesh_query_ms']:.1f} "
+          f"marching={out['mesh_marching_ms']:.1f} "
+          f"write={out['mesh_write_ms']:.1f} cull={out['mesh_cull_ms']:.1f}")
 
 
 if __name__ == "__main__":

@@ -210,3 +210,58 @@ def test_hash_table_grad_ray_ordered_matches_plain(cuda_device, n_rays,
     scale = ref.abs().max().item()
     assert (out - ref).abs().max().item() <= 1e-5 * scale
     assert torch.equal(out == 0, ref == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", ["CPGrid", "HashGrid"])
+def test_extract_mesh_on_card_matches_cpu(cuda_device, enc, tmp_path):
+    """extract_mesh of one scene on the card and on the CPU: the SDF grid
+    within 1e-4 (no TF32 or other device-only numerics in the queries),
+    the same weight mask, vertex and face counts within 1%."""
+    from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
+    from remixfusion_tpu_torch.utils.convert import scene_from_numpy, \
+        scene_to_numpy
+    from remixfusion_tpu_torch.utils.mesh import extract_mesh
+
+    cfg = {
+        "grid": {"enc": enc, "hash_size": 16, "voxel_sdf": 0.02},
+        "pos": {"enc": "OneBlob", "n_bins": 16},
+        "decoder": {"geo_feat_dim": 15, "hidden_dim": 32, "num_layers": 2,
+                    "num_layers_color": 2, "hidden_dim_color": 32},
+        "mapping": {"pose_scale": 0.01},
+        "globalV": {"base_resolution": 64},
+        "training": {"c_trunc": 0.25, "trunc": 0.05},
+        "data": {"sc_factor": 1, "translation": 0},
+    }
+    bound = np.array([[0.0, 4.0]] * 3, np.float32)
+    cpu = SceneRepresentation(cfg, bound, 16, device="cpu",
+                              generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        for p in cpu.decoder_res.parameters():
+            p.copy_(torch.tensor(rng.uniform(-0.15, 0.15, tuple(p.shape)),
+                                 dtype=torch.float32))
+        R = cpu.gbv_resolution
+        w = np.stack(np.meshgrid(*[np.arange(R)] * 3, indexing="ij"),
+                     -1) / R * 4.0
+        d = np.linalg.norm(w - (2.0, 2.1, 1.9), axis=-1) - 0.9
+        cpu.gbv[..., 0] = torch.tensor(np.clip(d / 0.25, -1, 1))
+        cpu.gbv[..., 1:] = torch.tensor(0.5 + 0.45 * np.sin(w))
+        cpu.gbw.copy_(torch.tensor(((w[..., 0] < 2.55)
+                                    * (1 + rng.random((R, R, R))))))
+    params, buffers = scene_to_numpy(cpu)
+    card = scene_from_numpy(cfg, bound, 16, params, buffers,
+                            device=cuda_device)
+    out = {}
+    for name, scene in (("cpu", cpu), ("card", card)):
+        info = {}
+        v, f, _ = extract_mesh(scene, cfg, bound, voxel_size=0.04,
+                               mesh_savepath=str(tmp_path / f"{name}.ply"),
+                               info=info)
+        out[name] = (v, f, info)
+    (vc, fc, ic), (vg, fg, ig) = out["cpu"], out["card"]
+    assert np.abs(ig["sdf"] - ic["sdf"]).max() <= 1e-4
+    assert np.array_equal(ig["weight"] > 0, ic["weight"] > 0)
+    assert len(fc) > 1000
+    assert abs(len(vg) - len(vc)) <= 0.01 * len(vc)
+    assert abs(len(fg) - len(fc)) <= 0.01 * len(fc)
