@@ -50,8 +50,34 @@ prints no result line):
      smoothness shapes): max |d| <= 1e-5 * max |plain| (atomics reorder
      float32 sums) and rows no point touched exactly zero; index_add_ on
      precomputed rows is the library yardstick (used nowhere in the port);
-  6. the kernels JSON line; 7. the card's name and power limit; and last
-     the {"ok": true, ...} line.
+  6. real tum: configs/Tum/fr1_desk.yaml at its own cam, RO, volume and
+     mapping widths (RO.sample_range 0.1, the U(-sr, sr) branch of the
+     per-pixel ray shift; crop_edge 10, crop_size [384, 512], the
+     five-term distortion, png_depth_scale 5000, optim_cur,
+     filter_depth) on a TUM layout (rgb.txt / depth.txt /
+     groundtruth.txt, 16-bit depth PNGs, distorted colour PNGs) that
+     tools/write_layout.py renders from the synthetic room; only
+     data.datadir, data.output, mapping.bound and marching_cubes_bound
+     (the room) and the frame count (REAL_FRAMES) are overridden. The
+     frames go through the port's loader (its own PNG decoder, the
+     cv2-exact undistort and resize) into RemixFusionTorch.run, as
+     `run_torch.py --config ... --input_folder ...` does. brick_eval
+     launched 20 times per tracked frame; full and RO-only ATE at most
+     1.5 cm;
+  7. real scannet: the settings of configs/ScanNet/scene0000.yaml
+     (sample_range 2.0, the U(-sr, 1) branch, so the expected tsdf
+     saturates to 1.0 past the truncation; 4 cm voxels, crop_edge 10,
+     cut_dist 20) with dataset largeindoor: the ScanNet directory
+     structure (color/, depth/, pose/*.txt) with PNG colour, so the card
+     needs no JPEG decoder; colour written at 1296x968 over 640x480 depth,
+     so the colour resize runs; the orbit at 0.6 degrees per frame (half
+     the TUM layout's: at 1.2 this config drifts past the bar in both
+     packages, PERF.md section 6). The same checks; then brick_eval against
+     its plain version (both interpolation modes, phase 3's tolerance) on
+     the tier inputs captured from this phase's last frame, whose expected
+     tsdf holds 1.0 and values below 0;
+  8. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
+     and power limit; and last the {"ok": true, ...} line.
 Every kernel is timed two ways: device_ms, the device time of one call (a
 CUDA graph of many calls replayed back to back, timed with CUDA events,
 divided by the number of calls; the output allocation and zeroing of a
@@ -73,6 +99,19 @@ CONFIGS = {"A": os.path.join(ROOT, "configs", "Synthetic",
                              "bench_hashgrid.yaml")}
 N_FRAMES = 60
 ATE_BAR_CM = 2.0
+# the real-layout phases: config, layout written, dataset name override,
+# colour size (H, W) when it differs from depth, orbit degrees per frame.
+# ScanNet's 4 cm voxels and 58-degree field of view drift on the synthetic
+# orbit at the JAX layout smoke's 1.2 degrees per frame (4.76 cm RO-only
+# ATE over 40 frames on an H100; the JAX package drifts alike, PERF.md
+# section 6): its layout moves at half that speed, 1.4 cm per frame
+REAL = {
+    "tum": ("configs/Tum/fr1_desk.yaml", "tum", None, None, 1.2),
+    "scannet": ("configs/ScanNet/scene0000.yaml", "largeindoor",
+                "largeindoor", (968, 1296), 0.6),
+}
+REAL_FRAMES = 40
+REAL_ATE_BAR_CM = 1.5
 MESH_BOX = (-0.5, 4.5)
 SDF_TOL = 1e-4
 SDF_SUBSET = 65536
@@ -314,59 +353,77 @@ def tier_cases(torch, slam, frames):
     return cases
 
 
+def check_brick_case(torch, args, phase):
+    """brick_eval_volume against its plain version on one tier's inputs,
+    in both interpolation modes: same bits on a second call, the same
+    guard positions, max |d| < TOL_MAX and mean < TOL_MEAN; then its
+    device and call times, the plain version's and the bound."""
+    from remixfusion_tpu_torch.ops import brick_eval as be
+
+    params, pix, base, tsdf, layout, table = args
+    C, P = table.shape[1], pix.shape[0]
+    windows = be.fetch_windows(tsdf, layout, base)
+    shapes = []
+    for interp in ("nearest", "trilinear"):
+        got = be.brick_eval_volume(*args, interp=interp)
+        again = be.brick_eval_volume(*args, interp=interp)
+        ref = be.brick_eval_volume_reference(*args, interp=interp)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"brick_eval gave other bits on a second call at C={C} "
+                 f"P={P} {interp} ({phase})")
+        if not torch.equal(got >= 1e6, ref >= 1e6):
+            fail(f"brick_eval guard positions differ at C={C} P={P} "
+                 f"{interp} ({phase})")
+        keep = got < 1e6
+        d = (got - ref).abs()[keep]
+        err_max = float(d.max()) if d.numel() else 0.0
+        err_mean = float(d.mean()) if d.numel() else 0.0
+        if not (err_max < TOL_MAX and err_mean < TOL_MEAN):
+            fail(f"brick_eval disagrees with its plain version at C={C} "
+                 f"P={P} {interp} ({phase}): max {err_max} mean {err_mean}")
+        t = measure(torch, lambda: be.brick_eval_volume(
+            *args, interp=interp), 200, 20)
+        p_ms = time_cuda(torch, lambda: be.brick_eval_volume_reference(
+            *args, interp=interp), 20, 3)
+        reached = int(be.pair_terms(params, pix, windows, table,
+                                    interp=interp)[2].sum())
+        ops = C * P * OPS_PAIR + reached * OPS_LOOKUP[interp]
+        # params, pix, base and table read once, each window's 64 cells
+        # read once from the volume, the costs written once
+        nbytes = 4 * (32 + P * (pix.shape[1] + 3 + 64)
+                      + C * table.shape[0] + C)
+        t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        ok = pix[:, 7] > 0
+        gt = pix[ok, 3]
+        shapes.append({
+            "phase": phase, "C": C, "P": P, "interp": interp,
+            "device_ms": t["device_ms"], "call_ms": t["call_ms"],
+            "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err_max, "mean_abs_err": err_mean,
+            "guarded": int((~keep).sum()),
+            "pairs_reaching_lookup": reached,
+            "gt_min": float(gt.min()) if gt.numel() else 0.0,
+            "gt_max": float(gt.max()) if gt.numel() else 0.0,
+            "gt_ones": int((gt == 1.0).sum()),
+            "gt_negative": int((gt < 0).sum())})
+        print(f"[kernel] brick_eval ({phase}) C={C} P={P} {interp}: "
+              f"max|d|={err_max:.3e} mean|d|={err_mean:.3e} device "
+              f"{t['device_ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms; "
+              f"expected tsdf in [{shapes[-1]['gt_min']:.4f}, "
+              f"{shapes[-1]['gt_max']:.4f}], {shapes[-1]['gt_ones']} at "
+              f"1.0, {shapes[-1]['gt_negative']} below 0", flush=True)
+    return shapes
+
+
 def phase_kernels(torch, slam, frames):
     import numpy as np
 
-    from remixfusion_tpu_torch.ops import brick_eval as be
-
     shapes = []
     for args in tier_cases(torch, slam, frames):
-        params, pix, base, tsdf, layout, table = args
-        C, P = table.shape[1], pix.shape[0]
-        windows = be.fetch_windows(tsdf, layout, base)
-        for interp in ("nearest", "trilinear"):
-            got = be.brick_eval_volume(*args, interp=interp)
-            again = be.brick_eval_volume(*args, interp=interp)
-            ref = be.brick_eval_volume_reference(*args, interp=interp)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                fail(f"brick_eval gave other bits on a second call at C={C} "
-                     f"P={P} {interp}")
-            if not torch.equal(got >= 1e6, ref >= 1e6):
-                fail(f"brick_eval guard positions differ at C={C} P={P} "
-                     f"{interp}")
-            keep = got < 1e6
-            d = (got - ref).abs()[keep]
-            err_max = float(d.max()) if d.numel() else 0.0
-            err_mean = float(d.mean()) if d.numel() else 0.0
-            if not (err_max < TOL_MAX and err_mean < TOL_MEAN):
-                fail(f"brick_eval disagrees with its plain version at C={C} "
-                     f"P={P} {interp}: max {err_max} mean {err_mean}")
-            t = measure(torch, lambda: be.brick_eval_volume(
-                *args, interp=interp), 200, 20)
-            p_ms = time_cuda(torch, lambda: be.brick_eval_volume_reference(
-                *args, interp=interp), 20, 3)
-            reached = int(be.pair_terms(params, pix, windows, table,
-                                        interp=interp)[2].sum())
-            ops = C * P * OPS_PAIR + reached * OPS_LOOKUP[interp]
-            # params, pix, base and table read once, each window's 64 cells
-            # read once from the volume, the costs written once
-            nbytes = 4 * (32 + P * (pix.shape[1] + 3 + 64)
-                          + C * table.shape[0] + C)
-            t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-            shapes.append({
-                "C": C, "P": P, "interp": interp,
-                "device_ms": t["device_ms"], "call_ms": t["call_ms"],
-                "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "max_abs_err": err_max, "mean_abs_err": err_mean,
-                "guarded": int((~keep).sum()),
-                "pairs_reaching_lookup": reached})
-            print(f"[kernel] brick_eval C={C} P={P} {interp}: "
-                  f"max|d|={err_max:.3e} mean|d|={err_mean:.3e} device "
-                  f"{t['device_ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms",
-                  flush=True)
+        shapes += check_brick_case(torch, args, "A")
     main = [s for s in shapes if s["interp"] == slam.tracker.tsdf_interp]
     mean = lambda k: float(np.mean([s[k] for s in main]))  # noqa: E731
     by = [s["bound_by"] for s in main]
@@ -501,6 +558,120 @@ def slice_b_captured(torch):
     return slam, out, launches, list(captured)
 
 
+def phase_real(torch, label):
+    """Write the `label` layout from the synthetic room at the config's own
+    camera, then drive RemixFusionTorch.run through the port's loader with
+    brick_eval's launch count zeroed just before and read just after.
+    Returns (slam, stats, launches, captured tier inputs of the last
+    tracked frame: (params, pix, base, tsdf, layout, table) per call)."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.config import load_config
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.slam import RemixFusionTorch
+    from remixfusion_tpu_torch.tools.write_layout import ROOM, write_layout
+    from remixfusion_tpu_torch.tracking import rotracker
+
+    path, layout, dataset, color_hw, degrees = REAL[label]
+    cfg = load_config(os.path.join(ROOT, path))
+    if dataset is not None:
+        cfg["dataset"] = dataset
+    data_dir = os.path.join(ROOT, "build", "smoke", f"layout_{label}")
+    cfg["data"]["datadir"] = data_dir
+    cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke",
+                                         f"real_{label}")
+    cfg["mapping"]["bound"] = [list(b) for b in ROOM]
+    cfg["mapping"]["marching_cubes_bound"] = [list(b) for b in ROOM]
+    t0 = time.time()
+    write_layout(cfg, layout, data_dir, REAL_FRAMES, color_hw,
+                 degrees_per_frame=degrees)
+    t_write = time.time() - t0
+    note = ""
+    if dataset == "largeindoor":
+        note = (" (dataset largeindoor: the ScanNet directory structure "
+                "color/, depth/, pose/*.txt with PNG colour, so the card "
+                "needs no JPEG decoder)")
+    print(f"[real {label}] {path}{note}: {layout} layout of {REAL_FRAMES} "
+          f"frames written in {t_write:.1f} s (orbit {degrees} degrees per "
+          f"frame, colour {color_hw or 'at the depth size'}); "
+          f"RO.sample_range "
+          f"{cfg['RO']['sample_range']}, volume {cfg['volume']['voxel_size']}"
+          f" m voxels, cam {cfg['cam']['W']}x{cfg['cam']['H']} crop_edge "
+          f"{cfg['cam']['crop_edge']} crop_size "
+          f"{cfg['cam'].get('crop_size')} distortion "
+          f"{cfg['cam'].get('distortion')}", flush=True)
+
+    t0 = time.time()
+    slam = RemixFusionTorch(cfg, device="cuda")
+    slam.preload(REAL_FRAMES)
+    t_setup = time.time() - t0
+    iters = int(cfg["RO"]["particle_iter_lens"])
+    captured = []
+    kernel = rotracker.brick_eval_volume
+
+    def capture(params, pix, base, tsdf, layout_, table, interp):
+        captured.append((params, pix, base, tsdf, layout_, table))
+        del captured[:-iters]
+        return kernel(params, pix, base, tsdf, layout_, table,
+                      interp=interp)
+
+    rotracker.brick_eval_volume = capture
+    try:
+        be.brick_eval_volume.launches = 0
+        t0 = time.time()
+        out = slam.run()
+        t_run = time.time() - t0
+        launches = be.brick_eval_volume.launches
+    finally:
+        rotracker.brick_eval_volume = kernel
+    print(f"[real {label}] frames={out['frames']} tracked="
+          f"{out['tracked_frames']} ms_per_frame={out['ms_per_frame']} "
+          f"(host clock over {out['timed_frames']} frames, ending in "
+          f"torch.cuda.synchronize) ms_per_round={out['ms_per_round']} "
+          f"rounds={out['mapping_rounds']} first_frame_mapping_ms="
+          f"{out['first_frame_mapping_ms']} ate_rmse_cm={out['ate_rmse_cm']}"
+          f" ate_rmse_cm_ro_only={out['ate_rmse_cm_ro_only']} "
+          f"launches={{'brick_eval': {launches}}} mesh_faces="
+          f"{out['mesh_faces']} mesh_cull_faces={out['mesh_cull_faces']} "
+          f"wall: write {t_write:.1f} s, set-up + load {t_setup:.1f} s, "
+          f"run {t_run:.1f} s", flush=True)
+    if out["frames"] != REAL_FRAMES:
+        fail(f"real {label}: the loader gave {out['frames']} frames, "
+             f"expected {REAL_FRAMES}")
+    if launches != iters * out["tracked_frames"]:
+        fail(f"real {label}: brick_eval launched {launches} times, expected "
+             f"{iters * out['tracked_frames']}")
+    for key in ("ate_rmse_cm_ro_only", "ate_rmse_cm"):
+        if not out[key] <= REAL_ATE_BAR_CM:
+            fail(f"real {label}: {key} {out[key]} cm > {REAL_ATE_BAR_CM}")
+    if not out["mapping_rounds"] > 0:
+        fail(f"real {label}: no mapping round ran")
+    n = out["frames"]
+    if not (np.isfinite(slam.RO_c2w_data[:n]).all()
+            and np.isfinite(slam.trajectory(n)).all()):
+        fail(f"real {label}: non-finite pose")
+    if not out["mesh_faces"] > 0:
+        fail(f"real {label}: empty mesh")
+    out["wall_s"] = t_write + t_setup + t_run
+    return slam, out, launches, captured
+
+
+def perturbed_tier_cases(captured):
+    """One capture per tier shape (C, P) among a frame's calls; each must
+    hold expected tsdf values of 1.0 and below 0 on its valid pixels."""
+    cases = {}
+    for args in captured:
+        pix, table = args[1], args[5]
+        key = (table.shape[1], pix.shape[0])
+        if key not in cases:
+            gt = pix[pix[:, 7] > 0, 3]
+            if not (bool((gt == 1.0).any()) and bool((gt < 0).any())):
+                fail(f"real scannet: tier C={key[0]} P={key[1]} has no "
+                     f"expected tsdf of 1.0 or none below 0")
+            cases[key] = args
+    return [cases[k] for k in sorted(cases, reverse=True)]
+
+
 def main():
     import torch
 
@@ -512,22 +683,55 @@ def main():
               "remixfusion_tpu_torch package is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    wall = {}
+    t0 = time.time()
     phase_build()
+    wall["build"] = time.time() - t0
+    t0 = time.time()
     slam, out_a, launches_a = phase_slice(torch, "A")
+    wall["slice A"] = time.time() - t0
+    t0 = time.time()
     phase_mesh(slam, out_a, "A")
+    wall["mesh A"] = time.time() - t0
+    t0 = time.time()
     brick = phase_kernels(torch, slam, out_a["frames"])
+    wall["kernel brick_eval"] = time.time() - t0
     del slam
     torch.cuda.empty_cache()
 
+    t0 = time.time()
     slam, out_b, launches_b, captured = slice_b_captured(torch)
+    wall["slice B"] = time.time() - t0
+    t0 = time.time()
     phase_mesh(slam, out_b, "B")
+    wall["mesh B"] = time.time() - t0
+    t0 = time.time()
     hashk = phase_hash_kernel(torch, captured)
+    wall["kernel hash_table_grad"] = time.time() - t0
+    del slam, captured
+    torch.cuda.empty_cache()
+
+    real_launches = {}
+    for label in REAL:
+        t0 = time.time()
+        slam, out_r, real_launches[label], tiers = phase_real(torch, label)
+        if label == "scannet":
+            for args in perturbed_tier_cases(tiers):
+                brick["shapes"] += check_brick_case(torch, args,
+                                                    "real scannet")
+        wall[f"real {label}"] = time.time() - t0
+        del slam, tiers
+        torch.cuda.empty_cache()
+
     brick["launches"] = launches_a["brick_eval"]
     brick["launches_by_slice"] = {"A": launches_a["brick_eval"],
-                                  "B": launches_b["brick_eval"]}
+                                  "B": launches_b["brick_eval"],
+                                  **{f"real {k}": v
+                                     for k, v in real_launches.items()}}
     hashk["launches"] = launches_b["hash_table_grad"]
     hashk["launches_by_slice"] = {"A": launches_a["hash_table_grad"],
                                   "B": launches_b["hash_table_grad"]}
+    print(json.dumps({"phase_wall_s": wall}), flush=True)
     print(json.dumps({"kernels": [brick, hashk]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

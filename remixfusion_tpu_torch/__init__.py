@@ -16,8 +16,14 @@ Present slices: the online SLAM loop of RemixFusionTorch —
     the checkpoint, mesh.ply (the residual field queried on the dense mesh
     grid on the device, marching tetrahedra in host C++ built with g++
     into build/host/) and mesh_cull_occlusion.ply; tools/eval_recon scores
-    the mesh.
-Resume state and the real-sensor loaders come later.
+    the mesh;
+  - the real-sensor path: the eleven dataset loaders (datasets/loaders.py)
+    with the port's own image I/O (utils/imageio.py: PNG decoded with zlib
+    and a host C++ unfilter, OpenCV's resize and undistort arithmetic;
+    JPEG through OpenCV), the tracker's per-pixel ray shift
+    (RO.sample_range), print_ape, and the capture tools
+    (tools/preprocess.py, tools/check_data.py, tools/write_layout.py).
+Resume state comes later.
 """
 
 from __future__ import annotations

@@ -10,6 +10,16 @@ from __future__ import annotations
 import numpy as np
 
 
+def as_intrinsics_matrix(intrinsics) -> np.ndarray:
+    """[fx, fy, cx, cy] -> 3x3 K matrix (float64)."""
+    K = np.eye(3)
+    K[0, 0] = intrinsics[0]
+    K[1, 1] = intrinsics[1]
+    K[0, 2] = intrinsics[2]
+    K[1, 2] = intrinsics[3]
+    return K
+
+
 def get_camera_rays(H, W, fx, fy, cx, cy) -> np.ndarray:
     """Per-pixel ray directions [H, W, 3] float32 in the camera frame."""
     i, j = np.meshgrid(np.arange(W, dtype=np.float32),

@@ -1,19 +1,41 @@
 """Dataset factory: config['dataset'] string -> loader instance.
 
-The port carries the analytic synthetic scene only; the real-sensor loaders
-(Replica, BS3D, ScanNet, TUM, ...) and the multi-room synthetic building
-come with a later slice.
+Counterpart of remixfusion_tpu.datasets.factory (reference
+datasets/dataset.py:12-53): the analytic synthetic scene and the eleven
+real-sensor loaders of datasets/loaders.py. The multi-room synthetic
+building ('synthetic_large') is not ported yet.
 """
 
 from __future__ import annotations
 
 
 def get_dataset(config):
+    # normalize the reference's mixed-case names ('Fast_syn', 'BS3D',
+    # 'Largeindoor', reference datasets/dataset.py:12-47)
     name = config["dataset"].lower().replace("_", "")
     if name == "synthetic":
         from remixfusion_tpu_torch.datasets.synthetic import SyntheticDataset
         return SyntheticDataset(config)
-    raise NotImplementedError(
-        f"dataset {config['dataset']!r} is not ported yet: the PyTorch port "
-        f"ships the 'synthetic' scene only (real-sensor loaders and "
-        f"'synthetic_large' come in a later slice)")
+    if name == "syntheticlarge":
+        raise NotImplementedError(
+            "dataset 'synthetic_large' (the multi-room synthetic building) "
+            "is not ported yet")
+
+    from remixfusion_tpu_torch.datasets import loaders
+
+    table = {
+        "replica": loaders.ReplicaDataset,
+        "bs3d": loaders.BS3DDataset,
+        "scannet": loaders.ScannetDataset,
+        "tum": loaders.TUMDataset,
+        "fastsyn": loaders.FastsynDataset,
+        "uhumans": loaders.UhumansDataset,
+        "azure": loaders.AzureDataset,
+        "iphone": loaders.IPhoneDataset,
+        "rgb": loaders.RGBDataset,
+        "realsense": loaders.RealsenseDataset,
+        "largeindoor": loaders.LargeindoorDataset,
+    }
+    if name not in table:
+        raise ValueError(f"unknown dataset type {config['dataset']}")
+    return table[name](config)

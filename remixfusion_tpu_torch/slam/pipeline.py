@@ -51,6 +51,7 @@ from remixfusion_tpu_torch import host_to_device, resolve_device
 from remixfusion_tpu_torch.core.pose import const_speed_np, \
     predict_const_speed
 from remixfusion_tpu_torch.datasets import get_dataset
+from remixfusion_tpu_torch.datasets.base import update_cam
 from remixfusion_tpu_torch.mapping.keyframe import DeviceKeyFrameStore
 from remixfusion_tpu_torch.mapping.mapper import Mapper
 from remixfusion_tpu_torch.models.encodings import HashGridEncoding
@@ -65,6 +66,14 @@ from remixfusion_tpu_torch.utils.meshio import write_ply_mesh
 
 DEPTH_SCALE = 1000.0  # sensor-native depth quantization (mm)
 MAX_DEPTH = 65.535    # u16 ceiling in meters
+
+# first-frame pose of the 'Largeindoor' and 'uhumans' sequences (reference
+# mapper.py:311-321, ROtracker.py:76-80)
+_FIRST_POSE_OVERRIDE = np.array(
+    [[0.0, 0.0, 1.0, 0.0],
+     [-1.0, 0.0, 0.0, 0.0],
+     [0.0, -1.0, 0.0, 0.0],
+     [0.0, 0.0, 0.0, 1.0]], np.float32)
 
 
 def quantize_depth(depth: np.ndarray) -> np.ndarray:
@@ -124,9 +133,7 @@ class RemixFusionTorch:
                                  for p in self.dataset.poses])
 
         batch0 = self.dataset[0]
-        # the synthetic scene's first pose is its ground truth (the first-
-        # pose overrides of Largeindoor/uhumans come with their loaders)
-        init_pose = np.asarray(batch0["c2w"], np.float32).copy()
+        init_pose = self._first_pose(batch0)
         self.RO_c2w_data[0] = init_pose
         self.est_c2w_data[0] = init_pose
         self.mv = MovingVolume(config, init_pose, self.device)
@@ -141,6 +148,10 @@ class RemixFusionTorch:
         self._np_rng = np.random.default_rng(self._seed)
         self._gen = torch.Generator(device=self.device).manual_seed(
             self._seed)
+        # the tracker's per-pixel along-ray shifts (RO.sample_range != 0)
+        # draw from their own stream, so the mapping draws do not move
+        self._shift_gen = torch.Generator(device=self.device).manual_seed(
+            self._seed + 1)
         self.scene = SceneRepresentation(config, self.bound, self.num_kf,
                                          device=self.device,
                                          generator=self._gen)
@@ -190,6 +201,8 @@ class RemixFusionTorch:
         self._speed_damp = float(tcfg.get("speed_damp", 1.0))
         self._fit_lo = float(tcfg.get("damp_fit_lo", 0.15))
         self._fit_hi = float(tcfg.get("damp_fit_hi", 0.40))
+        # fitness of the last harvested frame (read only when damping)
+        self._last_fit = 0.0
         # look-ahead brick selection: (frame_id, origin, selection, phase)
         self._lookahead = None
         # keyframe-only color fusion (volume.color_fuse: keyframes | all)
@@ -207,27 +220,20 @@ class RemixFusionTorch:
     # --------------------------------------------------------------- setup
 
     def update_cam(self):
-        """Intrinsics rescale/crop bookkeeping (reference run.py:62-84);
-        idempotent through the `_cam_updated` flag like the JAX pipeline."""
-        cfg = self.config["cam"]
-        if cfg.get("_cam_updated"):
-            return
-        cfg["_cam_updated"] = True
-        if "crop_size" in cfg:
-            crop = cfg["crop_size"]
-            sx = (crop[1] + cfg["crop_edge"] * 2) / cfg["W"]
-            sy = (crop[0] + cfg["crop_edge"] * 2) / cfg["H"]
-            cfg["fx"] *= sx
-            cfg["fy"] *= sy
-            cfg["cx"] *= sx
-            cfg["cy"] *= sy
-            cfg["W"] = crop[1] + cfg["crop_edge"] * 2
-            cfg["H"] = crop[0] + cfg["crop_edge"] * 2
-        if cfg["crop_edge"] > 0:
-            cfg["H"] -= cfg["crop_edge"] * 2
-            cfg["W"] -= cfg["crop_edge"] * 2
-            cfg["cx"] -= cfg["crop_edge"]
-            cfg["cy"] -= cfg["crop_edge"]
+        """Intrinsics rescale / crop bookkeeping (datasets.base.update_cam,
+        reference run.py:62-84); idempotent."""
+        update_cam(self.config["cam"])
+
+    def _first_pose(self, batch) -> np.ndarray:
+        """Dataset-specific first-frame pose overrides (the JAX pipeline's
+        _first_pose; the names are matched as the configs spell them)."""
+        c2w = np.asarray(batch["c2w"], np.float32).copy()
+        ds = self.config["dataset"]
+        if ds == "Largeindoor":
+            return _FIRST_POSE_OVERRIDE.copy()
+        if ds == "uhumans":
+            c2w[:3, :3] = _FIRST_POSE_OVERRIDE[:3, :3]
+        return c2w
 
     def _get_frame(self, idx: int):
         frame = self._frames.get(idx)
@@ -276,8 +282,10 @@ class RemixFusionTorch:
             self._harvest_one()
 
     def _harvest_one(self):
-        frame_id, res, _init = self._pending.pop(0)
+        frame_id, res, init = self._pending.pop(0)
         c2w = res.c2w.cpu().numpy()
+        fit = (float(res.origin_value) if self._speed_damp != 1.0
+               else 0.0)
         if not np.isfinite(c2w).all():
             # non-finite tracked pose (reference warns, slam.py:243-247):
             # substitute the host extrapolation and reset the device chain
@@ -290,8 +298,10 @@ class RemixFusionTorch:
             self._dev_pose_prev2 = dev
             self._dev_fit_prev = torch.zeros((), dtype=torch.float32,
                                              device=self.device)
+            fit = 0.0
         self._last_harvested = (self._last_harvested
                                 + [(frame_id, c2w)])[-2:]
+        self._last_fit = fit
         self.RO_c2w_data[frame_id] = c2w
         self.est_c2w_data[frame_id] = c2w
         if frame_id % self._kf_every != 0:
@@ -300,6 +310,12 @@ class RemixFusionTorch:
                 c2w.astype(np.float64)
                 @ np.linalg.inv(self.RO_c2w_data[kf].astype(np.float64))
             ).astype(np.float32)
+        if self.config.get("print_ape"):
+            gt = self.pose_gt[frame_id]
+            ape_b = np.abs(gt[:3, 3] - init[:3, 3]).mean()
+            ape_a = np.abs(gt[:3, 3] - c2w[:3, 3]).mean()
+            tag = "success" if ape_a < ape_b else "fail"
+            print(f"final {tag} ape: {ape_b:.6f}->{ape_a:.6f}")
         # local-volume mesh dumps (reference ROtracker.py:941-945)
         ro = self.config["RO"]
         if ro.get("save_volume") and (
@@ -315,7 +331,9 @@ class RemixFusionTorch:
     def _host_pose_estimate(self, frame_id: int) -> np.ndarray:
         """Pose of frame_id extrapolated from the last two harvested poses
         (const-speed delta per remaining frame); used for the re-center
-        thresholds and the margin-padded brick selection."""
+        thresholds and the margin-padded brick selection. tracking.
+        speed_damp damps the translation through the device predictor's
+        fitness gate, on the last harvested frame's fitness."""
         lh = self._last_harvested
         if not lh:
             return self.RO_c2w_data[0].copy()
@@ -323,7 +341,16 @@ class RemixFusionTorch:
             return lh[-1][1].copy()
         (_, p2), (i1, p1) = lh[0], lh[1]
         return const_speed_np(p1, p2, steps=max(frame_id - i1, 0),
-                              damp=self._speed_damp)
+                              damp=self._gated_damp())
+
+    def _gated_damp(self) -> float:
+        """predict_const_speed's lambda: 1 up to fitness fit_lo, falling to
+        speed_damp at fit_hi and beyond."""
+        if self._speed_damp == 1.0:
+            return 1.0
+        u = min(max((self._last_fit - self._fit_lo)
+                    / (self._fit_hi - self._fit_lo), 0.0), 1.0)
+        return 1.0 - u * (1.0 - self._speed_damp)
 
     def _predict_init(self) -> torch.Tensor:
         """Initial pose of the next dispatched frame from the device pose
@@ -366,7 +393,8 @@ class RemixFusionTorch:
             depth_t, rgb255 = self._device_frame(batch, fc)
         with record_function("slice.track"):
             res = self.tracker.track(mv.state.tsdf, mv.state.origin,
-                                     self._predict_init(), depth_t)
+                                     self._predict_init(), depth_t,
+                                     generator=self._shift_gen)
         with record_function("slice.fuse"):
             mv.fuse(ids, depth_t, rgb255, self.K_dev, res.c2w,
                     self._obs_weight(res))

@@ -6,10 +6,15 @@ mode, eval_mode 'pallas' (reference model/ROtracker.py:33-971). A frame runs
 success count (count % 3 -> 10240/3072/1024 candidates at image strides
 32/16/8, pst.TIFF_INDEX / pst.DEPTH_LEVEL), computes the tier's vertices and
 normals at its pixel subgrid (gathered from per-frame maps) and each
-pixel's window base, scores every candidate with the `brick_eval` kernel,
-which reads each pixel's 4^3 TSDF window from the brick-major volume itself
-(rounded through bfloat16 like the JAX track volume), and updates the pose
-with the weighted mean of the improving candidates.
+pixel's window base. With RO.sample_range != 0 the per-frame vertex map
+shifts every pixel along its ray by a random fraction of the truncation
+and expects the TSDF value that shift implies (reference compute_vertex,
+ROtracker.py:272-344); the shift is drawn on the device from a
+torch.Generator the caller owns. Every candidate is scored with the
+`brick_eval` kernel, which reads each pixel's 4^3 TSDF window from the
+brick-major volume itself (rounded through bfloat16 like the JAX track
+volume), and the pose moves to the weighted mean of the improving
+candidates.
 
 The JAX tracker keeps the loop on the device (fori_loop + lax.switch over
 three static-shape tiers). Here the tier's shape (C, P) depends on the
@@ -64,9 +69,7 @@ class ROTracker:
         if self.tsdf_interp not in ("nearest", "trilinear"):
             raise ValueError(f"unknown RO.tsdf_interp {self.tsdf_interp!r}")
         self.sample_range = float(ro["sample_range"])
-        if self.sample_range != 0.0:
-            raise NotImplementedError(
-                "RO.sample_range != 0 (per-pixel perturbation) is not ported")
+        self.truncation = float(cfg["volume"]["trunc"])
 
         self.init_size = float(ro["init_size"])
         self.scaling_coefficient = float(ro["scaling_coefficient"])
@@ -182,16 +185,81 @@ class ROTracker:
         n = torch.stack([nx, ny, nz], -1).reshape(-1, 3)
         return v, n
 
-    def vertex_normal_maps(self, depth):
-        """Full-image vertex [H, W, 4] and normal [H, W, 3] maps, computed
-        once per frame with _vertex_normal_at's per-pixel arithmetic, so a
-        tier's subgrid gathered from them is bitwise what the subgrid
-        computation gives (and costs two gathers per iteration instead of
-        ~100 small kernels)."""
+    def draw_sample(self, generator: torch.Generator) -> torch.Tensor:
+        """Per-pixel along-ray shift [H, W] in units of the truncation:
+        U(-sr, sr) for sample_range sr < 1, U(-sr, 1) for sr >= 1 (the JAX
+        tracker's ranges; the draw is torch's, not jax.random's)."""
+        sr = self.sample_range
+        lo, hi = -sr, (sr if sr < 1.0 else 1.0)
+        u = torch.rand((self.H, self.W), generator=generator,
+                       dtype=torch.float32, device=self.device)
+        return u * (hi - lo) + lo
+
+    def _compute_vertex(self, depth, sample):
+        """Camera-space vertex map [H, W, 4] (xyz + expected tsdf) with the
+        along-ray shift sample * trunc; the expected tsdf -sample saturates
+        to 1.0 where the shift leaves [-trunc, trunc] (JAX
+        ROTracker._compute_vertex)."""
+        K, trunc = self.K, self.truncation
+        d = torch.where(depth > self.cut_dist, 0.0, depth)
+        valid = d > 0
+        z_val = sample * trunc
+        gt = torch.where((z_val < -trunc) | (z_val > trunc), 1.0, -sample)
+        jj = torch.arange(self.W, dtype=torch.float32,
+                          device=self.device)[None, :]
+        ii = torch.arange(self.H, dtype=torch.float32,
+                          device=self.device)[:, None]
+        cz = d + z_val
+        cx = (jj - K[0, 2]) * cz / K[0, 0]
+        cy = (ii - K[1, 2]) * cz / K[1, 1]
+        vert = torch.stack([cx, cy, cz, gt], -1)
+        return torch.where(valid[..., None], vert, 0.0)
+
+    def _compute_normal(self, vertex):
+        """Central-difference normals [H, W, 3] of a vertex map; a zero
+        vertex among the five gives 0, border pixels keep the all-ones
+        sentinel (JAX ROTracker._compute_normal)."""
+        v = vertex[..., :3]
+        zeros_col = torch.zeros_like(v[:, :1])
+        zeros_row = torch.zeros_like(v[:1])
+        left = torch.cat([zeros_col, v[:, :-1]], 1)
+        right = torch.cat([v[:, 1:], zeros_col], 1)
+        up = torch.cat([zeros_row, v[:-1]], 0)
+        down = torch.cat([v[1:], zeros_row], 0)
+        n = torch.linalg.cross(left - right, up - down, dim=-1)
+        ln = torch.sqrt((n * n).sum(-1, keepdim=True))
+        n = n / torch.clamp(ln, min=1e-12)
+        n = torch.where(n[..., 2:3] > 0, -n, n)
+        zero_nb = ((v[..., 2] == 0) | (left[..., 2] == 0)
+                   | (right[..., 2] == 0) | (up[..., 2] == 0)
+                   | (down[..., 2] == 0))
+        n = torch.where(zero_nb[..., None], 0.0, n)
+        H, W = self.H, self.W
+        ii = torch.arange(H, device=self.device)[:, None]
+        jj = torch.arange(W, device=self.device)[None, :]
+        border = (ii < 1) | (ii > H - 2) | (jj < 1) | (jj > W - 2)
+        return torch.where(border[..., None], 1.0, n)
+
+    def vertex_normal_maps(self, depth, sample=None, generator=None):
+        """Full-image vertex [H, W, 4] and normal [H, W, 3] maps, once per
+        frame. sample_range == 0: _vertex_normal_at's per-pixel arithmetic
+        (expected tsdf 0), so a tier's subgrid gathered from them is bitwise
+        what the subgrid computation gives. Otherwise every pixel is shifted
+        along its ray by `sample` [H, W] (drawn from `generator` when not
+        given) and the normals follow the shifted vertices."""
         dev = self.device
-        v, n = self._vertex_normal_at(depth, torch.arange(self.H, device=dev),
-                                      torch.arange(self.W, device=dev))
-        return v.reshape(self.H, self.W, 4), n.reshape(self.H, self.W, 3)
+        if self.sample_range == 0.0:
+            v, n = self._vertex_normal_at(depth,
+                                          torch.arange(self.H, device=dev),
+                                          torch.arange(self.W, device=dev))
+            return v.reshape(self.H, self.W, 4), n.reshape(self.H, self.W, 3)
+        if sample is None:
+            if generator is None:
+                raise ValueError("RO.sample_range != 0 needs a per-pixel "
+                                 "sample or a torch.Generator to draw it")
+            sample = self.draw_sample(generator)
+        vertex = self._compute_vertex(depth, sample)
+        return vertex, self._compute_normal(vertex)
 
     def _tier_pixels(self, vn, level: int, level_index: int):
         """(vertex [P, 4], normal [P, 3], pix_ok [P]) at one tier's pixel
@@ -280,10 +348,13 @@ class ROTracker:
 
     # -------------------------------------------------------------- track
 
-    def track(self, tsdf_bm, origin, c2w_init, depth, ss_init=None):
+    def track(self, tsdf_bm, origin, c2w_init, depth, ss_init=None,
+              sample=None, generator=None):
         """Optimize one frame's pose. tsdf_bm [NB, b^3] f32, origin [3],
-        c2w_init [4, 4], depth [H, W] — device tensors. One boolean is read
-        back per iteration (the tier choice needs it on the host)."""
+        c2w_init [4, 4], depth [H, W] — device tensors; sample / generator
+        as vertex_normal_maps takes them (sample_range != 0 only). One
+        boolean is read back per iteration (the tier choice needs it on the
+        host)."""
         R = c2w_init[:3, :3].clone()
         T = c2w_init[:3, 3].clone()
         ss = self.init_search_size() if ss_init is None else ss_init
@@ -292,7 +363,7 @@ class ROTracker:
         ema_flag, first_ok = False, False
         count_cap = min(self.particle_iter_lens - 1, 19)
         origin_val = None
-        vn = self.vertex_normal_maps(depth)
+        vn = self.vertex_normal_maps(depth, sample, generator)
         for i in range(self.particle_iter_lens):
             cls = count % 3
             slab = self.slab_table[count]
@@ -335,10 +406,12 @@ class ROTracker:
         return torch.full((6,), self.init_size, dtype=torch.float32,
                           device=self.device)
 
-    def do_tracking(self, mv_state, c2w_init, depth, search_size=None):
+    def do_tracking(self, mv_state, c2w_init, depth, search_size=None,
+                    sample=None, generator=None):
         """Optimize the pose of one frame against the moving volume
         (mv_state: ops.tsdf.VolumeState, brick-major; c2w_init [4, 4] and
-        depth [H, W] as arrays or tensors)."""
+        depth [H, W] as arrays or tensors; sample [H, W] as an array or
+        tensor)."""
         dev = self.device
         c2w = torch.as_tensor(np.asarray(c2w_init, np.float32)
                               if not torch.is_tensor(c2w_init)
@@ -346,5 +419,8 @@ class ROTracker:
         depth = torch.as_tensor(np.asarray(depth, np.float32)
                                 if not torch.is_tensor(depth) else depth,
                                 device=dev)
+        if sample is not None and not torch.is_tensor(sample):
+            sample = torch.tensor(np.asarray(sample, np.float32),
+                                  device=dev)
         return self.track(mv_state.tsdf, mv_state.origin, c2w, depth,
-                          search_size)
+                          search_size, sample, generator)

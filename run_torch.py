@@ -1,7 +1,17 @@
 """CLI entry point of the PyTorch/CUDA port:
 
     python run_torch.py --config configs/Synthetic/synthetic_bench.yaml \
-        [--output DIR] [--max_frames N] [--device cuda|cpu]
+        [--input_folder DIR] [--output DIR] [--max_frames N] \
+        [--device cuda|cpu]
+
+A real-sensor config (configs/Tum, ScanNet, Replica, BS3D, Fast_syn,
+uhumans) reads the capture in --input_folder (overriding data.datadir):
+`python run_torch.py --config configs/Tum/fr1_desk.yaml --input_folder
+<rgbd_dataset_freiburg1_desk>`. PNG frames are read by the port's own
+decoder; JPEG colour frames (Replica, ScanNet, Azure, and BS3D where it
+ships .jpg) need OpenCV (cv2). `python -m
+remixfusion_tpu_torch.tools.check_data --config ... --input_folder ...`
+checks the layout first.
 
 Loads the config (inherit_from chaining, no PyYAML needed), runs the online
 SLAM loop of remixfusion_tpu_torch on the GPU (or the CPU when asked):
@@ -30,6 +40,8 @@ def main():
     parser = argparse.ArgumentParser(
         description="PyTorch/CUDA online RGB-D SLAM")
     parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--input_folder", type=str,
+                        help="overrides data.datadir from the config")
     parser.add_argument("--output", type=str,
                         help="overrides data.output from the config")
     parser.add_argument("--max_frames", type=int, default=None,
@@ -41,6 +53,8 @@ def main():
     cfg = load_config(args.config)
     if args.output is not None:
         cfg["data"]["output"] = args.output
+    if args.input_folder is not None:
+        cfg["data"]["datadir"] = args.input_folder
     slam = RemixFusionTorch(cfg, device=args.device)
     out = slam.run(max_frames=args.max_frames)
     print(f"# frames={out['frames']} device={out['device']} "

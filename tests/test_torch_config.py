@@ -59,12 +59,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 path, mod)
 
 
+def test_port_imports_no_image_library_at_module_level():
+    """OpenCV and PIL may be missing on the card's host: the port imports
+    cv2 only where a JPEG is read or written, and PIL nowhere."""
+    for path in PORT_FILES:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            for mod in names:
+                assert mod.split(".")[0] not in ("cv2", "PIL"), (path, mod)
+        for mod in _imports(path):
+            assert mod.split(".")[0] != "PIL", (path, mod)
+
+
 def test_port_runs_without_jax_or_pyyaml():
     """Import every port module and load a config in a process where jax,
-    the JAX package and yaml cannot be imported."""
+    the JAX package, yaml, cv2 and PIL cannot be imported."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'jaxlib', 'yaml', 'remixfusion_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'yaml', 'remixfusion_tpu', 'cv2',\n"
+        "          'PIL'):\n"
         "    sys.modules[m] = None\n"
         "import remixfusion_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"

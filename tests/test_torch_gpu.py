@@ -144,6 +144,52 @@ def test_brick_eval_kernel_matches_plain(cuda_device, interp):
         be.brick_eval(params, pix, bricks, table, interp=interp)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["nearest", "trilinear"])
+def test_brick_eval_perturbed_tier_matches_plain(cuda_device, interp):
+    """One tier of the tracker with RO.sample_range 2.0 (ScanNet's), built
+    on the card: each pixel shifted along its ray by U(-2, 1) x trunc, so
+    the expected tsdf (pix[:, 3]) spans [-1, 1) and saturates to 1.0 past
+    the truncation. The kernel against its plain version at the finest
+    tier's shape (C = 1024)."""
+    from helpers import tiny_config
+    from remixfusion_tpu_torch.tracking.rotracker import ROTracker
+
+    _, _, _, tsdf_bm, layout, _ = brick_volume_inputs(1024, 4800, 17,
+                                                      interp)
+    cfg = tiny_config(
+        RO={"eval_mode": "pallas", "tsdf_interp": interp,
+            "sample_range": 2.0, "cut_dist": 20.0,
+            "PST_size": [10240, 3072, 1024], "depth_level": [4, 2, 1]},
+        volume={"trunc": 0.15})
+    K = np.array([[40.0, 0, 31.5], [0, 40.0, 23.5], [0, 0, 1]], np.float32)
+    tt = ROTracker(cfg, 48, 64, K, (100, 100, 70), 0.05, layout,
+                   cuda_device)
+    rng = np.random.default_rng(18)
+    depth = torch.tensor(rng.uniform(1.0, 3.0, (48, 64)).astype(np.float32),
+                         device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    vn = tt.vertex_normal_maps(depth, generator=gen)
+    origin = torch.tensor([-2.0, -2.0, 0.0], device=cuda_device)
+    eye = torch.eye(3, device=cuda_device)
+    params, pix, base = tt.tier_inputs(1, 0, eye, torch.zeros(
+        3, device=cuda_device), tt.init_search_size(), vn, origin)
+    gt = pix[pix[:, 7] > 0, 3]
+    assert bool((gt == 1.0).any()) and bool((gt < 0).any())
+    table = tt.pst_t[2][0]
+    tsdf_bm = torch.from_numpy(tsdf_bm).to(cuda_device)
+    out = be.brick_eval_volume(params, pix, base, tsdf_bm, layout, table,
+                               interp=interp)
+    ref = be.brick_eval_volume_reference(params, pix, base, tsdf_bm, layout,
+                                         table, interp=interp)
+    torch.cuda.synchronize()
+    assert torch.equal(out >= 1e6, ref >= 1e6)
+    keep = out < 1e6
+    assert bool(keep.any())
+    d = (out - ref).abs()[keep]
+    assert d.max().item() < 5e-3 and d.mean().item() < 1e-4
+
+
 def hash_grad_inputs(n_pts, seed):
     """The bench_hashgrid encoder (16 levels, 2^16 hashed, desired
     resolution 200), points inside and around the unit cube, and an output

@@ -200,3 +200,77 @@ def test_const_speed_prediction_matches_jax(jax_runs):
                 const_speed=True, speed_damp=damp).numpy()
             assert np.abs(out - ref).max() < 1e-5, (damp, i)
         j.close()
+
+
+def test_host_prediction_gated_like_device(tmp_path):
+    """tracking.speed_damp < 1: the host extrapolation (re-center and brick
+    selection) damps through the device predictor's fitness gate, on the
+    last harvested frame's fitness: the two predictions agree over fitness
+    from 0 (no damping) to 0.6 (full damping)."""
+    from remixfusion_tpu_torch.core.pose import predict_const_speed
+    cfg = _cfg(tmp_path, "nearest")
+    cfg["tracking"]["speed_damp"] = 0.5
+    s = RemixFusionTorch(cfg, device="cpu")
+    p2 = s.dataset[2]["c2w"].copy()
+    p1 = s.dataset[4]["c2w"].copy()
+    p1[:3, 3] += np.array([0.03, -0.02, 0.01], np.float32)
+    s._last_harvested = [(2, p2), (3, p1)]
+    gaps = []
+    for fit in np.linspace(0.0, 0.6, 13, dtype=np.float32):
+        s._last_fit = float(fit)
+        host = s._host_pose_estimate(4)
+        dev = predict_const_speed(
+            torch.tensor(p1), torch.tensor(p2), torch.tensor(fit),
+            const_speed=True, speed_damp=0.5).numpy()
+        assert np.abs(host - dev).max() < 1e-5, fit
+        gaps.append(np.abs(host[:3, 3] - p1[:3, 3]).max())
+    # the damping acts: the predicted step shrinks from fit_lo to fit_hi
+    assert gaps[0] > gaps[-1] * 1.5 and gaps[3] == gaps[0]
+
+
+def test_tum_layout_run_matches_jax(tmp_path):
+    """A tiny run through the real-sensor path: a TUM layout written by the
+    port (16-bit depth at 5000 per m, distorted colour, timestamp lists),
+    loaded with RO.sample_range 0.1, the fr1_desk distortion, crop_size and
+    crop_edge. The port's whole run (mapping rounds and finalize included)
+    must hold the JAX pipeline's RO-only ATE on the same directory within
+    0.1 cm; the per-pixel shifts are each package's own draws, so the poses
+    are not compared one by one."""
+    from remixfusion_tpu_torch.tools.write_layout import write_layout
+
+    cfg = _cfg(tmp_path / "out", "nearest")
+    cfg["dataset"] = "tum"
+    cfg["RO"]["sample_range"] = 0.1
+    cfg["RO"]["cut_dist"] = 3.0
+    cfg["cam"].update(png_depth_scale=5000.0, crop_edge=2,
+                      crop_size=[40, 56],
+                      distortion=[0.2624, -0.9531, -0.0054, 0.0026, 1.1633])
+    cfg["print_ape"] = 1
+    write_layout(cfg, "tum", str(tmp_path / "tum"), N, workers=1)
+    cfg["data"]["datadir"] = str(tmp_path / "tum")
+
+    j = RemixFusionTPU(copy.deepcopy(cfg))
+    assert j.dataset.H == 40 and j.dataset.W == 56
+    p0 = j._first_pose(j.dataset[0])
+    j.est_c2w_data[0] = p0
+    j.RO_c2w_data[0] = p0
+    for i in range(1, N):
+        j.track_frame(i, j.dataset[i])
+    j._harvest_pending_track()
+    j.close()
+    gt = j.pose_gt
+    ate_jax = evaluate_ate({float(i): gt[i] for i in range(N)},
+                           {float(i): j.RO_c2w_data[i]
+                            for i in range(N)})["rmse"]
+
+    s = RemixFusionTorch(copy.deepcopy(cfg), device="cpu")
+    assert np.array_equal(s.pose_gt, gt)
+    f_t, f_j = s.dataset[3], j.dataset[3]
+    assert np.array_equal(f_t["depth"], f_j["depth"])
+    assert np.abs(f_t["rgb"] - f_j["rgb"]).max() <= 1e-6
+    out = s.run()
+    assert out["tracked_frames"] == N - 1
+    assert np.isfinite(s.RO_c2w_data).all()
+    assert abs(out["ate_rmse_cm_ro_only"] - 100 * ate_jax) < 0.1, (
+        out["ate_rmse_cm_ro_only"], 100 * ate_jax)
+    assert out["mesh_faces"] > 0

@@ -10,6 +10,8 @@ subgrid vertices within 1e-6, normals within 2e-6 (a few ulps of a unit
 vector) with the same valid-pixel mask."""
 
 import copy
+import glob
+import os
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +30,8 @@ from remixfusion_tpu_torch.tracking.rotracker import ROTracker
 from remixfusion_tpu_torch.utils.convert import volume_state_from_numpy
 
 torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _cfg(interp="nearest"):
@@ -123,10 +127,154 @@ def test_do_tracking_matches_jax(interp):
     assert err1 < err0
 
 
+def _jax_sample(key, shape, sr):
+    """The JAX tracker's per-pixel draw for a track call with `key`
+    (ROTracker._build_track splits once, _compute_vertex draws)."""
+    vkey, = jax.random.split(key, 1)
+    hi = sr if sr < 1.0 else 1.0
+    return np.asarray(jax.random.uniform(vkey, shape, minval=-sr,
+                                         maxval=hi))
+
+
+@pytest.mark.parametrize("sr", [0.1, 2.0])
+def test_perturbed_vertex_normal_maps_match_jax(sr):
+    """RO.sample_range != 0: the full-image vertex and normal maps from
+    JAX's own draw. The expected tsdf and the valid pixels are bitwise;
+    xyz within 1e-6 and normals within 2e-6 (XLA contracts into FMAs)."""
+    cfg = _cfg()
+    cfg["RO"]["sample_range"] = sr
+    cfg["RO"]["cut_dist"] = 2.0
+    ds = jax_dataset(cfg)
+    depth = ds[3]["depth"]
+    jt = JaxTracker(cfg, ds.H, ds.W, ds.K(), (80, 80, 80), 0.025)
+    tt = ROTracker(copy.deepcopy(cfg), ds.H, ds.W, ds.K(), (80, 80, 80),
+                   0.025, (10, 8, 8), "cpu")
+    key = jax.random.PRNGKey(11)
+    vj = np.asarray(jax.jit(jt._compute_vertex)(
+        jnp.asarray(depth), jax.random.split(key, 1)[0]))
+    nj = np.asarray(jax.jit(jt._compute_normal)(jnp.asarray(vj)))
+    sample = _jax_sample(key, (ds.H, ds.W), sr)
+    vt, nt = (a.numpy() for a in tt.vertex_normal_maps(
+        torch.tensor(depth), sample=torch.tensor(sample)))
+    assert np.array_equal(vt[..., 3], vj[..., 3])
+    gt = vj[..., 3][vj[..., 2] != 0]
+    # both ends of the expected-tsdf range occur: -sample, and 1.0 past
+    # the truncation (sr >= 1 only)
+    assert (gt < 0).any() and (gt > 0).any()
+    assert (gt == 1.0).any() == (sr >= 1.0)
+    assert np.array_equal(vt[..., :3] != 0, vj[..., :3] != 0)
+    assert np.abs(vt[..., :3] - vj[..., :3]).max() <= 1e-6
+    assert np.array_equal(nt != 0, nj != 0)
+    assert np.abs(nt - nj).max() <= 2e-6
+    # the tiers gather from these maps as the JAX tiers do
+    for level, level_index in ((4, 0), (2, 1), (1, 0)):
+        _, _, okj = jt._tier_pixels((jnp.asarray(vj), jnp.asarray(nj),
+                                     None), level, level_index)
+        _, _, okt = tt._tier_pixels((torch.tensor(vj), torch.tensor(nj)),
+                                    level, level_index)
+        assert np.array_equal(okt.numpy(), np.asarray(okj))
+
+
+@pytest.mark.parametrize("sr", [0.1, 2.0])
+def test_do_tracking_perturbed_matches_jax(sr):
+    """A whole track call with RO.sample_range != 0, JAX's draw injected:
+    the same band as the unperturbed call. The JAX tracker's jitted and
+    eager runs can land a discrete step apart on the same inputs (XLA's
+    FMAs move a candidate's cost by an ulp; at sr = 2.0 here they part by
+    2.4 mm / 0.26 deg, and the port matches the eager run to 1e-5 deg even
+    when fed JAX's own maps); where the port misses the jitted pose it is
+    held to the eager one, as the pipeline lockstep test does."""
+    cfg = _cfg()
+    cfg["RO"]["sample_range"] = sr
+    ds = jax_dataset(cfg)
+    mv = _jax_volume(copy.deepcopy(cfg), ds, n_frames=5)
+    jt = JaxTracker(copy.deepcopy(cfg), ds.H, ds.W, ds.K(), mv.dims,
+                    mv.voxel_size,
+                    qpack_bm=(mv.brick, mv.dims[1] // mv.brick,
+                              mv.dims[2] // mv.brick))
+    state = volume_state_from_numpy(
+        np.asarray(mv.state.tsdf), np.asarray(mv.state.weight),
+        np.asarray(mv.state.color), np.asarray(mv.state.origin), "cpu")
+    tt = ROTracker(copy.deepcopy(cfg), ds.H, ds.W, ds.K(), mv.dims,
+                   mv.voxel_size, mv.brick_layout(), "cpu")
+    f = ds[5]
+    init = f["c2w"].copy()
+    init[:3, 3] += np.array([0.015, -0.01, 0.01], np.float32)
+    key = jax.random.PRNGKey(5)
+    rj = jt._track(mv.state.tsdf, mv.state.origin, jnp.asarray(init),
+                   jnp.asarray(f["depth"]), key, jt.init_search_size())
+    rt = tt.do_tracking(state, init, f["depth"],
+                        sample=_jax_sample(key, (ds.H, ds.W), sr))
+    dt, ang = _pose_gap(rt.c2w.numpy(), np.asarray(rj.c2w))
+    if not (dt < 1e-3 and ang < 0.1):
+        with jax.disable_jit():
+            rj = jt._track(mv.state.tsdf, mv.state.origin,
+                           jnp.asarray(init), jnp.asarray(f["depth"]), key,
+                           jt.init_search_size())
+        dt, ang = _pose_gap(rt.c2w.numpy(), np.asarray(rj.c2w))
+    assert dt < 1e-3 and ang < 0.1, (dt, ang)
+    assert rt.first_iter_success == bool(rj.first_iter_success)
+    assert abs(float(rt.origin_value) - float(rj.origin_value)) < 1e-4
+
+
+def test_perturbed_draw_ranges():
+    """The port's own draw (torch.Generator) covers the JAX ranges:
+    U(-sr, sr) below 1, U(-sr, 1) from 1 on; same generator state, same
+    draw."""
+    for sr, lo, hi in ((0.1, -0.1, 0.1), (2.0, -2.0, 1.0)):
+        cfg = tiny_config(RO={"eval_mode": "pallas", "sample_range": sr})
+        tt = ROTracker(cfg, 48, 64, np.eye(3, dtype=np.float32),
+                       (80, 80, 80), 0.05, (10, 8, 8), "cpu")
+        s = tt.draw_sample(torch.Generator().manual_seed(3))
+        assert s.shape == (48, 64) and s.dtype == torch.float32
+        assert lo <= float(s.min()) < lo + 0.05 * (hi - lo)
+        assert hi - 0.05 * (hi - lo) < float(s.max()) < hi
+        assert torch.equal(s, tt.draw_sample(
+            torch.Generator().manual_seed(3)))
+        with pytest.raises(ValueError):
+            tt.vertex_normal_maps(torch.zeros(48, 64))
+
+
 def test_tracker_rejects_unported_modes():
-    for ro in ({"eval_mode": "gather"}, {"eval_mode": "pallas",
-                                         "sample_range": 0.5}):
+    for ro in ({"eval_mode": "gather"},
+               {"eval_mode": "pallas", "brick_radius": 3}):
         cfg = tiny_config(RO=ro)
         with pytest.raises(NotImplementedError):
             ROTracker(cfg, 48, 64, np.eye(3, dtype=np.float32), (80, 80, 80),
                       0.05, (10, 8, 8), "cpu")
+
+
+REAL_CONFIGS = sorted(
+    os.path.relpath(p, ROOT) for p in glob.glob(
+        os.path.join(ROOT, "configs", "*", "*.yaml"))
+    if os.sep + "Synthetic" + os.sep not in p)
+
+
+@pytest.mark.parametrize("path", REAL_CONFIGS)
+def test_real_config_builds_tracker_and_loader_class(path, monkeypatch):
+    """Every real-sensor config (ScanNet's sample_range 2.0 and 3.0, TUM's
+    0.1 included) builds the port's tracker at its own camera (after
+    crop_size / crop_edge) and names a ported loader. The PST tables are
+    stubbed small here: generating the real ones takes seconds per config
+    (test_pst_tables_bitwise_equal holds them)."""
+    from remixfusion_tpu_torch.config import load_config
+    from remixfusion_tpu_torch.datasets import loaders
+    from remixfusion_tpu_torch.datasets.base import update_cam
+    from remixfusion_tpu_torch.tracking import rotracker
+
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setattr(rotracker.pst_mod, "load_pst", lambda _p, sizes: {
+        c: np.zeros((7, 8, 6), np.float32) for c in range(3)})
+    cfg = load_config(path)
+    update_cam(cfg["cam"])
+    c = cfg["cam"]
+    K = np.array([[c["fx"], 0, c["cx"]], [0, c["fy"], c["cy"]], [0, 0, 1]],
+                 np.float32)
+    tt = ROTracker(cfg, c["H"], c["W"], K, (100, 100, 100),
+                   cfg["volume"]["voxel_size"], (10, 10, 10), "cpu")
+    assert tt.sample_range == float(cfg["RO"]["sample_range"])
+    assert tt.truncation == float(cfg["volume"]["trunc"])
+    name = cfg["dataset"].lower().replace("_", "")
+    assert any(cls.__name__.lower().startswith(name)
+               for cls in vars(loaders).values() if isinstance(cls, type)
+               and issubclass(cls, loaders.FileRGBDDataset)), name
