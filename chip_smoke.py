@@ -76,7 +76,32 @@ prints no result line):
      its plain version (both interpolation modes, phase 3's tolerance) on
      the tier inputs captured from this phase's last frame, whose expected
      tsdf holds 1.0 and values below 0;
-  8. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
+  8. corridor: configs/Synthetic/synthetic_corridor.yaml at its own widths
+     (the multi-room building, synthetic_large; 640x480, PST tiers
+     10240/3072/1024 and 20 iterations, a 10 x 4 x 10 m moving volume at
+     2.5 cm = 400 x 160 x 400 = 25.6 M voxels with brick_budget_frac 0.12,
+     trunc 0.06, far 8, CPGrid, a 22 x 3 x 10 m global bound). Overridden:
+     data.output, mapping.state_every 50 and the frame count,
+     CORRIDOR_FRAMES = 100 of the walk's 800 (the one cut, for this
+     script's time limit). brick_eval launched 20 times per tracked frame;
+     at least 3 re-centres of the moving volume (frame_to_vrange); full
+     and RO-only ATE below 3 cm; resume.npz written at frame 50; mesh.ply
+     and mesh_cull_occlusion.ply non-empty with every vertex inside the
+     marching-cubes bound +- 0.5 m (the mesh is not scored: the analytic
+     ground-truth mesh of the building at 3 cm is ~10x the room's). Then
+     brick_eval against its plain version (both interpolation modes, phase
+     3's tolerance) on the tier inputs captured on the first tracked frame
+     after the first re-centre: the origin has moved, and the windows reach
+     cells at tsdf 1.0 in the slab the re-centre cleared (inside the new
+     bounds, outside the old);
+  9. corridor resumed: the RO poses [0, 50] and the volume as they stood
+     at the save are kept, the pipeline deleted; a fresh RemixFusionTorch
+     of the same config (its own output directory) loads resume.npz: every
+     array it holds is bitwise the file's, the RO rows and the volume
+     bitwise the kept copies; run(resume=True) over frames 51..99:
+     brick_eval launched 20 x 49 times, full and RO-only ATE below 3 cm;
+     the gap to the uninterrupted run's RO-only ATE is printed;
+  10. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
      and power limit; and last the {"ok": true, ...} line.
 Every kernel is timed two ways: device_ms, the device time of one call (a
 CUDA graph of many calls replayed back to back, timed with CUDA events,
@@ -112,6 +137,13 @@ REAL = {
 }
 REAL_FRAMES = 40
 REAL_ATE_BAR_CM = 1.5
+CORRIDOR = os.path.join(ROOT, "configs", "Synthetic",
+                        "synthetic_corridor.yaml")
+CORRIDOR_FRAMES = 100
+CORRIDOR_STATE_EVERY = 50
+CORRIDOR_ATE_BAR_CM = 3.0
+CORRIDOR_MIN_RECENTRES = 3
+CORRIDOR_MESH_PAD = 0.5
 MESH_BOX = (-0.5, 4.5)
 SDF_TOL = 1e-4
 SDF_SUBSET = 65536
@@ -672,6 +704,276 @@ def perturbed_tier_cases(captured):
     return [cases[k] for k in sorted(cases, reverse=True)]
 
 
+def corridor_config(output):
+    """synthetic_corridor.yaml with data.output, mapping.state_every and
+    nothing else overridden."""
+    from remixfusion_tpu_torch.config import load_config
+
+    cfg = load_config(CORRIDOR)
+    cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke", output)
+    cfg["mapping"]["state_every"] = CORRIDOR_STATE_EVERY
+    return cfg
+
+
+def check_corridor_meshes(out, slam, label):
+    import numpy as np
+
+    from remixfusion_tpu_torch.utils.meshio import read_ply
+
+    lo = slam.mc_bound[:, 0] - CORRIDOR_MESH_PAD
+    hi = slam.mc_bound[:, 1] + CORRIDOR_MESH_PAD
+    counts = {}
+    for key in ("mesh_path", "mesh_cull_path"):
+        v, f = read_ply(out[key])
+        if v is None or f is None or not len(v) or not len(f):
+            fail(f"{label}: {out[key]} is empty")
+        if not (np.isfinite(v).all() and (v >= lo).all()
+                and (v <= hi).all()):
+            fail(f"{label}: {out[key]} has vertices outside the "
+                 f"marching-cubes bound +- {CORRIDOR_MESH_PAD} m")
+        counts[key] = (len(v), len(f))
+    print(f"[{label}] mesh.ply {counts['mesh_path']} and "
+          f"mesh_cull_occlusion.ply {counts['mesh_cull_path']} (verts, "
+          f"faces) inside the bound; stage ms: query "
+          f"{out['mesh_query_ms']:.1f}, marching "
+          f"{out['mesh_marching_ms']:.1f}, write {out['mesh_write_ms']:.1f}"
+          f", cull {out['mesh_cull_ms']:.1f}", flush=True)
+
+
+def cleared_window_cells(torch, be, case, shift, dims):
+    """Cells at tsdf 1.0 in the 4^3 windows of one captured tier call whose
+    voxel lies inside the volume now and outside it before the re-centre
+    (the slab the re-centre cleared): `shift` the origin's move in voxels
+    (new - old), `dims` the volume's shape."""
+    base, tsdf, layout = case[2:5]
+    ones = be.fetch_windows(tsdf, layout, base) == 1.0
+    d = torch.arange(be.BRICK_SIDE, device=base.device)
+    off = torch.stack(torch.meshgrid(d, d, d, indexing="ij"), -1).reshape(
+        1, be.BRICK_CELLS, 3)
+    vox = base[:, None, :].to(torch.int64) + off
+    dims_t = torch.tensor(dims, device=base.device)
+    old = vox + torch.tensor(shift, device=base.device)
+    inside_new = ((vox >= 0) & (vox < dims_t)).all(-1)
+    outside_old = ((old < 0) | (old >= dims_t)).any(-1)
+    return int((ones & inside_new & outside_old).sum())
+
+
+def phase_corridor(torch):
+    """[corridor]: CORRIDOR_FRAMES of synthetic_corridor.yaml through
+    RemixFusionTorch.run with brick_eval's count zeroed just before and read
+    just after, a resume state written at frame CORRIDOR_STATE_EVERY.
+    Returns (stats, launches, what was kept at the save: RO rows, the
+    volume state, the checkpoint's path; the tier inputs captured on the
+    first tracked frame after the first re-centre)."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.ops import hash_enc as he
+    from remixfusion_tpu_torch.slam import RemixFusionTorch
+    from remixfusion_tpu_torch.tracking import rotracker
+
+    cfg = corridor_config("corridor")
+    t0 = time.time()
+    slam = RemixFusionTorch(cfg, device="cuda")
+    origin0 = slam.mv.vol_bnds[:, 0].copy()
+    slam.preload(CORRIDOR_FRAMES + 1)
+    t_setup = time.time() - t0
+    dims, vs = slam.mv.dims, slam.mv.voxel_size
+    print(f"[corridor] {os.path.relpath(CORRIDOR, ROOT)}: "
+          f"{cfg['dataset']}, {slam.dataset.W}x{slam.dataset.H}, volume "
+          f"{dims} = {int(np.prod(dims))} voxels at {vs} m, PST "
+          f"{cfg['RO']['PST_size']}, {cfg['RO']['particle_iter_lens']} "
+          f"iterations, far {cfg['cam']['far']}, {cfg['grid']['enc']}, "
+          f"bound {cfg['mapping']['bound']}; {CORRIDOR_FRAMES} of "
+          f"{slam.dataset.num_frames} frames; set-up (seed fusion, "
+          f"{CORRIDOR_FRAMES + 1} frames rendered) {t_setup:.1f} s",
+          flush=True)
+
+    iters = int(cfg["RO"]["particle_iter_lens"])
+    kept, captured, armed = {}, [], {}
+    save_state, check_move = slam.save_state, slam.mv.check_move
+
+    def keep_at_save(path):
+        ms = save_state(path)
+        kept.update(path=path, tracking_idx=slam.tracking_idx,
+                    ro=slam.RO_c2w_data[:slam.tracking_idx + 1].copy(),
+                    state=tuple(t.clone() for t in slam.mv.state))
+        return ms
+
+    def arm_on_recentre(cur_id, c2w):
+        moved = check_move(cur_id, c2w)
+        if moved and "frame" not in armed:
+            armed["frame"] = cur_id
+        return moved
+
+    kernel = rotracker.brick_eval_volume
+
+    def capture(params, pix, base, tsdf, layout, table, interp):
+        if "frame" in armed and len(captured) < iters:
+            if "tsdf" not in armed:
+                armed["tsdf"] = tsdf.clone()
+                armed["origin"] = slam.mv.vol_bnds[:, 0].copy()
+            captured.append((params.clone(), pix.clone(), base.clone(),
+                             armed["tsdf"], layout, table))
+        return kernel(params, pix, base, tsdf, layout, table, interp=interp)
+
+    slam.save_state = keep_at_save
+    slam.mv.check_move = arm_on_recentre
+    rotracker.brick_eval_volume = capture
+    try:
+        be.brick_eval_volume.launches = 0
+        he.hash_table_grad.launches = 0
+        t0 = time.time()
+        out = slam.run(max_frames=CORRIDOR_FRAMES)
+        t_run = time.time() - t0
+        launches = {"brick_eval": be.brick_eval_volume.launches,
+                    "hash_table_grad": he.hash_table_grad.launches}
+    finally:
+        rotracker.brick_eval_volume = kernel
+    recentres = len(slam.mv.frame_to_vrange)
+    at = sorted(s for s, _ in slam.mv.frame_to_vrange)[1:] + [
+        slam.mv.start_id]
+    print(f"[corridor] frames={out['frames']} tracked="
+          f"{out['tracked_frames']} ms_per_frame={out['ms_per_frame']} "
+          f"(host clock over {out['timed_frames']} frames, ending in "
+          f"torch.cuda.synchronize, state saves excluded) ms_per_round="
+          f"{out['ms_per_round']} rounds={out['mapping_rounds']} "
+          f"first_frame_mapping_ms={out['first_frame_mapping_ms']} "
+          f"ate_rmse_cm={out['ate_rmse_cm']} ate_rmse_cm_ro_only="
+          f"{out['ate_rmse_cm_ro_only']} launches={launches} "
+          f"recentres={recentres} at frames {at} "
+          f"state_save_ms={out['state_save_ms']} "
+          f"wall: set-up {t_setup:.1f} s, run {t_run:.1f} s", flush=True)
+    if launches != {"brick_eval": iters * out["tracked_frames"],
+                    "hash_table_grad": 0}:
+        fail(f"corridor: launches {launches}, expected brick_eval "
+             f"{iters * out['tracked_frames']} and hash_table_grad 0 "
+             f"(CPGrid)")
+    if recentres < CORRIDOR_MIN_RECENTRES:
+        fail(f"corridor: {recentres} re-centres, expected at least "
+             f"{CORRIDOR_MIN_RECENTRES}")
+    for key in ("ate_rmse_cm_ro_only", "ate_rmse_cm"):
+        if not out[key] < CORRIDOR_ATE_BAR_CM:
+            fail(f"corridor: {key} {out[key]} cm >= {CORRIDOR_ATE_BAR_CM}")
+    n = out["frames"]
+    if not (np.isfinite(slam.RO_c2w_data[:n]).all()
+            and np.isfinite(slam.trajectory(n)).all()):
+        fail("corridor: non-finite pose")
+    if (kept.get("tracking_idx") != CORRIDOR_STATE_EVERY
+            or len(out["state_save_ms"]) != 1
+            or not os.path.exists(kept["path"])):
+        fail(f"corridor: resume.npz not written at frame "
+             f"{CORRIDOR_STATE_EVERY} (saves {out['state_save_ms']}, "
+             f"kept {kept.get('tracking_idx')})")
+    check_corridor_meshes(out, slam, "corridor")
+
+    if len(captured) != iters:
+        fail(f"corridor: captured {len(captured)} tier calls after the "
+             f"first re-centre, expected {iters}")
+    cases = {}
+    for args in captured:
+        cases.setdefault((args[5].shape[1], args[1].shape[0]), args)
+    cases = [cases[k] for k in sorted(cases, reverse=True)]
+    old_origin = slam.mv.frameid_to_vrange(armed["frame"] - 1)[:, 0]
+    new_origin = armed["origin"]
+    shift = np.round((new_origin - old_origin) / vs).astype(np.int64)
+    ones = sum(int((be.fetch_windows(a[3], a[4], a[2]) == 1.0).sum())
+               for a in cases)
+    cleared = sum(cleared_window_cells(torch, be, a, shift, dims)
+                  for a in cases)
+    print(f"[corridor] tier inputs of frame {armed['frame']} (the first "
+          f"after the first re-centre; origin {old_origin.tolist()} -> "
+          f"{new_origin.tolist()}, {shift.tolist()} voxels): (C, P) "
+          f"{[(a[5].shape[1], a[1].shape[0]) for a in cases]}, {ones} "
+          f"window cells at tsdf 1.0, {cleared} of them in the slab the "
+          f"re-centre cleared", flush=True)
+    if not np.array_equal(old_origin, origin0) or not shift.any():
+        fail(f"corridor: the captured tiers are not the first after the "
+             f"first re-centre (origin {origin0.tolist()} -> "
+             f"{old_origin.tolist()} -> {new_origin.tolist()})")
+    if cleared == 0:
+        fail("corridor: no window of the captured tiers reaches the slab "
+             "the re-centre cleared (tsdf 1.0 outside the old bounds)")
+    return slam, out, launches, kept, cases
+
+
+def phase_corridor_resumed(torch, kept, out_full):
+    """[corridor resumed]: a fresh pipeline of the same config loads the
+    corridor's resume.npz, every loaded array is checked bitwise, and the
+    run continues to CORRIDOR_FRAMES with brick_eval's count zeroed just
+    before and read just after."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.ops import hash_enc as he
+    from remixfusion_tpu_torch.slam import RemixFusionTorch
+
+    cfg = corridor_config("corridor_resumed")
+    t0 = time.time()
+    slam = RemixFusionTorch(cfg, device="cuda")
+    t_setup = time.time() - t0
+    t0 = time.time()
+    slam.load_state(kept["path"])
+    t_load = time.time() - t0
+    with np.load(kept["path"]) as f:
+        data = {k: f[k] for k in f.files}
+    got = slam.state_arrays()
+    bad = sorted(k for k in data
+                 if k not in got or got[k].dtype != data[k].dtype
+                 or (got[k].dtype.kind != "U"
+                     and not np.array_equal(got[k], data[k]))
+                 or (got[k].dtype.kind == "U"
+                     and json.loads(str(got[k])) != json.loads(str(data[k]))))
+    if bad or got.keys() != data.keys():
+        fail(f"corridor resumed: loaded state differs from resume.npz at "
+             f"{bad or sorted(set(got) ^ set(data))}")
+    i = kept["tracking_idx"]
+    if not np.array_equal(slam.RO_c2w_data[:i + 1], kept["ro"]):
+        fail("corridor resumed: RO poses [0, save] differ from the kept "
+             "copy")
+    if not all(torch.equal(a, b) for a, b in zip(slam.mv.state,
+                                                 kept["state"])):
+        fail("corridor resumed: the volume differs from the kept copy")
+    print(f"[corridor resumed] {len(data)} arrays of resume.npz "
+          f"({os.path.getsize(kept['path'])} bytes) loaded bitwise, RO rows "
+          f"[0, {i}] and the {tuple(slam.mv.dims)} volume bitwise the kept "
+          f"copies; set-up {t_setup:.1f} s, load_state {t_load:.1f} s",
+          flush=True)
+    del data, got
+
+    iters = int(cfg["RO"]["particle_iter_lens"])
+    be.brick_eval_volume.launches = 0
+    he.hash_table_grad.launches = 0
+    t0 = time.time()
+    out = slam.run(max_frames=CORRIDOR_FRAMES, resume=True)
+    t_run = time.time() - t0
+    launches = {"brick_eval": be.brick_eval_volume.launches,
+                "hash_table_grad": he.hash_table_grad.launches}
+    gap = out["ate_rmse_cm_ro_only"] - out_full["ate_rmse_cm_ro_only"]
+    print(f"[corridor resumed] frames {out['first_tracked']}.."
+          f"{out['frames'] - 1} tracked={out['tracked_frames']} "
+          f"ms_per_frame={out['ms_per_frame']} ms_per_round="
+          f"{out['ms_per_round']} rounds={out['mapping_rounds']} "
+          f"ate_rmse_cm={out['ate_rmse_cm']} ate_rmse_cm_ro_only="
+          f"{out['ate_rmse_cm_ro_only']} (uninterrupted "
+          f"{out_full['ate_rmse_cm_ro_only']}, gap {gap:+.4f} cm) "
+          f"launches={launches} run {t_run:.1f} s", flush=True)
+    frames = CORRIDOR_FRAMES - 1 - CORRIDOR_STATE_EVERY
+    want = {"brick_eval": iters * frames, "hash_table_grad": 0}
+    if out["tracked_frames"] != frames or launches != want:
+        fail(f"corridor resumed: launches {launches} over "
+             f"{out['tracked_frames']} frames, expected {want} over "
+             f"{frames}")
+    for key in ("ate_rmse_cm_ro_only", "ate_rmse_cm"):
+        if not out[key] < CORRIDOR_ATE_BAR_CM:
+            fail(f"corridor resumed: {key} {out[key]} cm >= "
+                 f"{CORRIDOR_ATE_BAR_CM}")
+    if not np.isfinite(slam.trajectory(out["frames"])).all():
+        fail("corridor resumed: non-finite pose")
+    check_corridor_meshes(out, slam, "corridor resumed")
+    return slam, out, launches
+
+
 def main():
     import torch
 
@@ -723,14 +1025,34 @@ def main():
         del slam, tiers
         torch.cuda.empty_cache()
 
+    t0 = time.time()
+    slam, out_c, launches_c, kept, cases = phase_corridor(torch)
+    wall["corridor"] = time.time() - t0
+    t0 = time.time()
+    for args in cases:
+        brick["shapes"] += check_brick_case(torch, args, "corridor")
+    wall["kernel brick_eval (corridor)"] = time.time() - t0
+    del slam, cases
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    slam, _, launches_r = phase_corridor_resumed(torch, kept, out_c)
+    wall["corridor resumed"] = time.time() - t0
+    del slam, kept
+    torch.cuda.empty_cache()
+
     brick["launches"] = launches_a["brick_eval"]
     brick["launches_by_slice"] = {"A": launches_a["brick_eval"],
                                   "B": launches_b["brick_eval"],
                                   **{f"real {k}": v
-                                     for k, v in real_launches.items()}}
+                                     for k, v in real_launches.items()},
+                                  "corridor": launches_c["brick_eval"],
+                                  "corridor resumed":
+                                      launches_r["brick_eval"]}
     hashk["launches"] = launches_b["hash_table_grad"]
-    hashk["launches_by_slice"] = {"A": launches_a["hash_table_grad"],
-                                  "B": launches_b["hash_table_grad"]}
+    hashk["launches_by_slice"] = {
+        "A": launches_a["hash_table_grad"], "B": launches_b["hash_table_grad"],
+        "corridor": launches_c["hash_table_grad"],
+        "corridor resumed": launches_r["hash_table_grad"]}
     print(json.dumps({"phase_wall_s": wall}), flush=True)
     print(json.dumps({"kernels": [brick, hashk]}), flush=True)
     print(card_line(), flush=True)

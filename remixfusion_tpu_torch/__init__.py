@@ -22,8 +22,13 @@ Present slices: the online SLAM loop of RemixFusionTorch —
     and a host C++ unfilter, OpenCV's resize and undistort arithmetic;
     JPEG through OpenCV), the tracker's per-pixel ray shift
     (RO.sample_range), print_ape, and the capture tools
-    (tools/preprocess.py, tools/check_data.py, tools/write_layout.py).
-Resume state comes later.
+    (tools/preprocess.py, tools/check_data.py, tools/write_layout.py);
+  - the large-scale path: the multi-room corridor building
+    (datasets/synthetic.py SyntheticLargeDataset, dataset
+    'synthetic_large'), Kinect-class sensor noise (utils/noise.py,
+    data.synthetic.sensor_noise) and mid-run resume (mapping.state_every
+    writes resume.npz; RemixFusionTorch.load_state then
+    run(resume=True), or run_torch.py --resume).
 """
 
 from __future__ import annotations

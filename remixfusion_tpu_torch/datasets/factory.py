@@ -1,9 +1,9 @@
 """Dataset factory: config['dataset'] string -> loader instance.
 
 Counterpart of remixfusion_tpu.datasets.factory (reference
-datasets/dataset.py:12-53): the analytic synthetic scene and the eleven
-real-sensor loaders of datasets/loaders.py. The multi-room synthetic
-building ('synthetic_large') is not ported yet.
+datasets/dataset.py:12-53): the analytic synthetic scenes (the orbit room
+and the multi-room building) and the eleven real-sensor loaders of
+datasets/loaders.py.
 """
 
 from __future__ import annotations
@@ -17,9 +17,9 @@ def get_dataset(config):
         from remixfusion_tpu_torch.datasets.synthetic import SyntheticDataset
         return SyntheticDataset(config)
     if name == "syntheticlarge":
-        raise NotImplementedError(
-            "dataset 'synthetic_large' (the multi-room synthetic building) "
-            "is not ported yet")
+        from remixfusion_tpu_torch.datasets.synthetic import \
+            SyntheticLargeDataset
+        return SyntheticLargeDataset(config)
 
     from remixfusion_tpu_torch.datasets import loaders
 

@@ -4,11 +4,13 @@ Counterpart of remixfusion_tpu.mapping.keyframe.DeviceKeyFrameStore
 (reference model/keyframe.py:5-96): a [num_kf * R, 7] tensor of
 (direction3, rgb3, depth1) rays, R = num_rays_to_save per keyframe, filled
 from the keyframe's device frame and sampled by the map and BA steps
-without any host round trip.
+without any host round trip. state_arrays / load_state_arrays carry the
+store through a resume checkpoint (the JAX kf_rays / kf_frame_ids keys).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -69,3 +71,17 @@ class DeviceKeyFrameStore:
             [dirs_flat[idx], rgb.reshape(-1, 3)[idx], depth[idx][:, None]],
             -1)
         self.frame_ids.append(int(frame_id))
+
+    def state_arrays(self) -> dict:
+        """The store for a resume checkpoint: kf_rays [num_kf * R, 7]
+        float32 and kf_frame_ids int64 [n]."""
+        return dict(kf_rays=self.rays.cpu().numpy(),
+                    kf_frame_ids=np.asarray(self.frame_ids, np.int64))
+
+    def load_state_arrays(self, data):
+        rays = np.asarray(data["kf_rays"])
+        if tuple(rays.shape) != tuple(self.rays.shape):
+            raise ValueError(f"kf_rays has shape {rays.shape}, the store "
+                             f"{tuple(self.rays.shape)}")
+        self.rays.copy_(torch.from_numpy(rays))
+        self.frame_ids = [int(i) for i in data["kf_frame_ids"]]

@@ -11,7 +11,9 @@ mp_slam/mapper.py:191-950):
     keyframe store and the current frame;
   - ba_step_dev: `BA_iters` steps of the RBA pose network through the same
     rendering losses with the explicit TSDF clamped; returns the refined
-    keyframe poses for the host write-back.
+    keyframe poses for the host write-back;
+  - opt_state_arrays / load_opt_state_arrays: both optimizers' states for
+    a resume checkpoint, in torch's state_dict layout.
 
 The JAX package's optax groups become torch.optim.Adam parameter groups
 (betas (0.9, 0.99) everywhere): the field table(s) at eps 1e-15, lr
@@ -30,6 +32,7 @@ through it.
 from __future__ import annotations
 
 import contextlib
+import json
 
 import numpy as np
 import torch
@@ -79,6 +82,42 @@ class Mapper:
         self.rba_opt = torch.optim.Adam(
             scene.rba.parameters(), lr=m["lr_pose"], betas=betas, eps=1e-15,
             weight_decay=1e-6)
+
+    # ------------------------------------------------------------ resume
+
+    OPTIMIZERS = ("map_opt", "rba_opt")
+
+    def opt_state_arrays(self) -> dict:
+        """Both optimizers' state_dicts as numpy arrays: the tensors of
+        parameter slot i under <opt>_state_<i>_<key> (key: step, exp_avg,
+        exp_avg_sq) and the parameter groups as JSON under
+        <opt>_param_groups."""
+        out = {}
+        for name in self.OPTIMIZERS:
+            sd = getattr(self, name).state_dict()
+            for i, st in sd["state"].items():
+                for k, v in st.items():
+                    out[f"{name}_state_{i}_{k}"] = (
+                        v.detach().cpu().numpy() if torch.is_tensor(v)
+                        else np.asarray(v))
+            out[f"{name}_param_groups"] = np.asarray(
+                json.dumps(sd["param_groups"]))
+        return out
+
+    def load_opt_state_arrays(self, data):
+        """Inverse of opt_state_arrays (a mapping of numpy arrays); the
+        tensors go to each parameter's device, as load_state_dict does."""
+        for name in self.OPTIMIZERS:
+            prefix = f"{name}_state_"
+            state = {}
+            for key in data.keys():
+                if key.startswith(prefix):
+                    i, k = key[len(prefix):].split("_", 1)
+                    state.setdefault(int(i), {})[k] = torch.from_numpy(
+                        np.array(data[key]))
+            groups = json.loads(str(data[f"{name}_param_groups"]))
+            getattr(self, name).load_state_dict(
+                {"state": state, "param_groups": groups})
 
     # ------------------------------------------------------------- fusion
 

@@ -384,6 +384,11 @@ class BrickSelector:
                         old[sx:sx + lx, sy:sy + ly, sz:sz + lz]
         self.seen = new.reshape(-1)
 
+    def reseed_seen(self, tsdf_bm_min):
+        """Rebuild the seen mask from volume content (checkpoint load):
+        any brick whose min tsdf < 1 holds or held surface."""
+        self.seen = np.asarray(tsdf_bm_min) < 1.0 - 1e-6
+
     def near_mask(self, origin, c2w, depth, trunc_margin):
         """Boolean [NB] mask of near-surface bricks + max depth."""
         d = np.asarray(depth)[::self.stride, ::self.stride].ravel()

@@ -23,7 +23,14 @@ run.py, mp_slam/tracker.py, mp_slam/mapper.py:874-950), on one device:
     on the dense grid at mesh.voxel_final on the device, marching
     tetrahedra on the host) and mesh_cull_occlusion.ply (the mesh culled
     with the trajectory and the dataset's depth). The mesh work runs after
-    the timed loop and reports its own stage times.
+    the timed loop and reports its own stage times;
+  - mid-run resume (JAX save_state / load_state): with mapping.state_every
+    the loop writes <out_dir>/resume.npz every state_every frames, the
+    whole state of the loop (poses, counters, scene model, both optimizer
+    states, the moving volume with its bounds history, the keyframe ray
+    store, the two torch.Generators); load_state restores it into a fresh
+    pipeline of the same config and run(resume=True) continues after the
+    saved frame.
 
 Schedule (single-threaded, same decisions as the JAX pipeline): frame i's
 tracked pose is harvested `tracking.harvest_depth` frames later; frame i
@@ -58,9 +65,10 @@ from remixfusion_tpu_torch.models.encodings import HashGridEncoding
 from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
 from remixfusion_tpu_torch.tools.cull_mesh import cull_one_mesh
 from remixfusion_tpu_torch.tools.eval_ate import evaluate_ate
-from remixfusion_tpu_torch.tracking.rotracker import ROTracker
+from remixfusion_tpu_torch.tracking.rotracker import ROTracker, check_modes
 from remixfusion_tpu_torch.tracking.volume import MovingVolume
-from remixfusion_tpu_torch.utils.convert import scene_to_numpy
+from remixfusion_tpu_torch.utils.convert import load_scene_numpy, \
+    scene_to_numpy
 from remixfusion_tpu_torch.utils.mesh import extract_mesh
 from remixfusion_tpu_torch.utils.meshio import write_ply_mesh
 
@@ -74,6 +82,23 @@ _FIRST_POSE_OVERRIDE = np.array(
      [-1.0, 0.0, 0.0, 0.0],
      [0.0, -1.0, 0.0, 0.0],
      [0.0, 0.0, 0.0, 1.0]], np.float32)
+
+
+# parts of SceneParams in jax.tree_util.tree_flatten order
+_PARAM_PARTS = ("hash_table", "decoder", "rba")
+
+
+def _leaves(tree) -> list:
+    """Leaves of a nested dict in tree_flatten order (keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _read_npz(path) -> dict:
+    """Every array of an .npz file, read into memory."""
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
 
 
 def quantize_depth(depth: np.ndarray) -> np.ndarray:
@@ -110,6 +135,8 @@ class RemixFusionTorch:
     def __init__(self, config, device=None):
         self.config = config
         self.device = resolve_device(device)
+        # unported modes raise before the volume and the frames are built
+        check_modes(config["RO"])
         vcfg = config["volume"]
         if int(vcfg.get("sel_reuse", 1)) != 1:
             raise NotImplementedError("volume.sel_reuse != 1 is not ported")
@@ -171,6 +198,7 @@ class RemixFusionTorch:
         self.map_iters_done = 0
         self.ba_iters_done = 0
         self.round_ms = []
+        self.state_save_ms = []
         self.first_frame_losses = None
         # stage times and grids of the last final mesh (save_mesh_final)
         self.mesh_info = None
@@ -377,7 +405,7 @@ class RemixFusionTorch:
         mv = self.mv
         with record_function("slice.select"):
             init = self._host_pose_estimate(frame_id)
-            mv.check_move(init)
+            mv.check_move(frame_id, init)
             la, self._lookahead = self._lookahead, None
             if (la is not None and la[0] == frame_id
                     and np.array_equal(la[1], mv.vol_bnds[:, 0])):
@@ -509,20 +537,23 @@ class RemixFusionTorch:
         self._pending_ba = (poses_all, cur_kf_id, cur_frame_id)
         return losses
 
-    def _apply_pending_ba(self):
-        """Write the BA-refined keyframe poses into est_c2w_data
-        (reference mapper.py:510-520), one round late."""
+    def _apply_pending_ba(self, est=None):
+        """Write the BA-refined keyframe poses into est_c2w_data (reference
+        mapper.py:510-520), one round late; or into the snapshot `est`,
+        leaving the write-back pending for the live trajectory."""
         if self._pending_ba is None:
             return
         poses_all, cur_kf_id, cur_frame_id = self._pending_ba
-        self._pending_ba = None
+        if est is None:
+            self._pending_ba = None
+            est = self.est_c2w_data
         poses_all = poses_all.cpu().numpy()
         m = self.config["mapping"]
         if cur_kf_id >= 1:
-            self.est_c2w_data[np.arange(cur_kf_id) * self._kf_every] = \
+            est[np.arange(cur_kf_id) * self._kf_every] = \
                 poses_all[:cur_kf_id]
             if m["optim_cur"]:
-                self.est_c2w_data[cur_frame_id] = poses_all[cur_kf_id]
+                est[cur_frame_id] = poses_all[cur_kf_id]
 
     def mapping_round(self, cur_frame_id: int):
         """One mapping round at cur_frame_id (reference
@@ -590,9 +621,14 @@ class RemixFusionTorch:
 
     # ---------------------------------------------------------- main loop
 
-    def preload(self, n: int):
-        """Render / load frames [0, n) into memory ahead of a timed run."""
-        for i in range(min(n, self.dataset.num_frames)):
+    def preload(self, n: int, start: int = 0):
+        """Render / load frames [start, n) into memory ahead of a timed run
+        (a synthetic scene renders the frames its disk cache lacks on
+        threads first)."""
+        n = min(n, self.dataset.num_frames)
+        if hasattr(self.dataset, "render_missing"):
+            self.dataset.render_missing(range(start, n))
+        for i in range(start, n):
             if i not in self._frames:
                 self._frames[i] = self.dataset[i]
 
@@ -608,47 +644,70 @@ class RemixFusionTorch:
                 out[i] = self.est_c2w_data_rel[i] @ self.est_c2w_data[kf]
         return out
 
-    def run(self, max_frames: int | None = None, warmup: int = 5):
+    def run(self, max_frames: int | None = None, warmup: int = 5,
+            resume: bool = False):
         """First-frame mapping, then frames 1..n-1 (n = num_frames, or
         max_frames) each tracked and followed by the mapping rounds that
-        became due, then finalize. Frames are preloaded, so the per-frame
-        time (host clock, ending in a device synchronise) covers tracking,
-        fusion, host selection and the mapping rounds; it is taken over the
-        frames after `warmup` (finalize's mesh work is outside it). Writes
-        config.json, ro_poses.npy, all_poses.npy, tracking_result.txt,
-        mesh.ply, mesh_cull_occlusion.ply and tracking_result.json to the
-        output directory. Returns a stats dict."""
+        became due, then finalize. With resume=True (after load_state)
+        first-frame mapping is skipped and the loop continues at
+        tracking_idx + 1. Frames are preloaded, so the per-frame time (host
+        clock, ending in a device synchronise) covers tracking, fusion,
+        host selection and the mapping rounds; it is taken over the frames
+        after `warmup` (finalize's mesh work and the resume-state saves of
+        mapping.state_every, reported as state_save_ms, are outside it; the
+        wait for queued device work that a save begins with is inside).
+        Writes config.json, ro_poses.npy, all_poses.npy,
+        tracking_result.txt, mesh.ply, mesh_cull_occlusion.ply,
+        tracking_result.json and, with mapping.state_every, resume.npz to
+        the output directory. Returns a stats dict."""
         os.makedirs(self.out_dir, exist_ok=True)
         with open(os.path.join(self.out_dir, "config.json"), "w") as f:
             json.dump(self.config, f, indent=2, default=str)
         n = self.dataset.num_frames
         if max_frames is not None:
             n = max(2, min(n, int(max_frames)))
-        self.preload(n + 1)
-        warmup = min(warmup, (n - 1) // 2)
+        start = self.tracking_idx + 1 if resume else 1
+        if start >= n:
+            raise ValueError(f"nothing to track: the run would continue at "
+                             f"frame {start} of {n}")
+        self.preload(n + 1, start=self.mapping_idx if resume else 0)
+        warmup = min(warmup, (n - start) // 2)
+        state_every = int(self.config["mapping"].get("state_every", 0))
+        state_path = os.path.join(self.out_dir, "resume.npz")
 
-        t0 = time.perf_counter()
-        self.first_frame_mapping()
-        self._sync()
-        first_ms = 1000.0 * (time.perf_counter() - t0)
+        first_ms = None
+        if not resume:
+            t0 = time.perf_counter()
+            self.first_frame_mapping()
+            self._sync()
+            first_ms = 1000.0 * (time.perf_counter() - t0)
         t_start = None
-        for idx in range(1, n):
-            if idx == warmup + 1:
+        saves_before = len(self.state_save_ms)
+        for idx in range(start, n):
+            if idx == start + warmup:
                 self._sync()
                 t_start = time.perf_counter()
                 rounds_before = len(self.round_ms)
+                saves_timed = len(self.state_save_ms)
             self.step(idx, n)
+            if state_every and idx % state_every == 0:
+                self.save_state(state_path)
         self._sync()
-        elapsed = time.perf_counter() - t_start
-        timed = n - 1 - warmup
+        # the state saves fall inside the timed frames; their time is not
+        # the loop's
+        elapsed = (time.perf_counter() - t_start
+                   - sum(self.state_save_ms[saves_timed:]) / 1000.0)
+        timed = n - start - warmup
         timed_rounds = len(self.round_ms) - rounds_before
         return self.finalize(n, {
             "frames": n,
-            "tracked_frames": n - 1,
+            "first_tracked": start,
+            "tracked_frames": n - start,
             "timed_frames": timed,
             "ms_per_frame": 1000.0 * elapsed / timed,
             "timed_rounds": timed_rounds,
             "first_frame_mapping_ms": first_ms,
+            "state_save_ms": self.state_save_ms[saves_before:],
         })
 
     def finalize(self, n: int, stats: dict) -> dict:
@@ -771,19 +830,34 @@ class RemixFusionTorch:
         jax.tree_util.tree_flatten(SceneParams) (hash_table, decoder, rba;
         dict keys sorted)."""
         params, buffers = scene_to_numpy(self.scene)
-
-        def leaves(tree):
-            if isinstance(tree, dict):
-                return [x for k in sorted(tree) for x in leaves(tree[k])]
-            return [tree]
-
-        flat = [x for part in ("hash_table", "decoder", "rba")
-                for x in leaves(params[part])]
+        flat = [x for part in _PARAM_PARTS for x in _leaves(params[part])]
         rba = buffers["rba"]
         return dict(gbv=buffers["gbv"], gbw=buffers["gbw"],
                     rba_init_c2w=rba["init_c2w"], rba_init_r=rba["init_r"],
                     rba_init_t=rba["init_t"],
                     **{f"param_{i}": p for i, p in enumerate(flat)})
+
+    def _restore_model_state(self, data):
+        """Inverse of _model_state_dict: the scene model's parameters and
+        buffers from a checkpoint's arrays, copied in place (the
+        optimizers keep their parameters)."""
+        template, _ = scene_to_numpy(self.scene)
+        n = sum(len(_leaves(template[part])) for part in _PARAM_PARTS)
+        if f"param_{n - 1}" not in data or f"param_{n}" in data:
+            raise ValueError(f"the checkpoint's param_<i> do not fit the "
+                             f"scene model's {n} parameter arrays")
+        it = iter(data[f"param_{i}"] for i in range(n))
+
+        def fill(tree):
+            if isinstance(tree, dict):
+                return {k: fill(tree[k]) for k in sorted(tree)}
+            return next(it)
+
+        params = {part: fill(template[part]) for part in _PARAM_PARTS}
+        buffers = {"gbv": data["gbv"], "gbw": data["gbw"],
+                   "rba": {k: data[f"rba_{k}"]
+                           for k in ("init_c2w", "init_r", "init_t")}}
+        load_scene_numpy(self.scene, params, buffers)
 
     def save_ckpt(self, path):
         """Model + pose checkpoint (reference mapper.py:257-265), with the
@@ -791,6 +865,111 @@ class RemixFusionTorch:
         np.savez(path, pose=self.est_c2w_data, pose_rel=self.est_c2w_data_rel,
                  **self._model_state_dict())
         print(f"Saved checkpoint to {path}")
+
+    def load_ckpt(self, path):
+        """Poses and scene model of a save_ckpt checkpoint."""
+        data = _read_npz(path)
+        self.est_c2w_data = data["pose"].copy()
+        self.est_c2w_data_rel = data["pose_rel"].copy()
+        self._restore_model_state(data)
+
+    def state_arrays(self) -> dict:
+        """The whole state of the loop as numpy arrays, under the keys of
+        the JAX save_state (pose, pose_rel, ro_pose, tracking_idx,
+        mapping_idx, the model fields, mv_*, vr_*, kf_rays, kf_frame_ids),
+        the moving volume dense; the optimizers in torch's state_dict
+        layout (<opt>_state_<i>_<key>, <opt>_param_groups) and the states
+        of the mapping and ray-shift generators (gen_state,
+        shift_gen_state) in place of the JAX package's optimizer leaves
+        and key_counter. A pending BA write-back is folded into `pose`
+        only: the live trajectory keeps its one-round-late staleness."""
+        est = self.est_c2w_data.copy()
+        self._apply_pending_ba(est=est)
+        return dict(
+            pose=est, pose_rel=self.est_c2w_data_rel.copy(),
+            ro_pose=self.RO_c2w_data.copy(),
+            tracking_idx=np.asarray(self.tracking_idx, np.int64),
+            mapping_idx=np.asarray(self.mapping_idx, np.int64),
+            **self._model_state_dict(), **self.mv.state_arrays(),
+            **self.kfdb.state_arrays(), **self.mapper.opt_state_arrays(),
+            gen_state=self._gen.get_state().numpy(),
+            shift_gen_state=self._shift_gen.get_state().numpy())
+
+    def save_state(self, path) -> float:
+        """Write the mid-run resume checkpoint (JAX save_state): the
+        pose-harvest queue is drained first, then state_arrays goes to a
+        temporary file, compressed, and replaces `path` only once complete,
+        so a failed save leaves the previous checkpoint intact. Returns the
+        save's wall time in ms (also appended to state_save_ms): its clock
+        starts after the drain and a device synchronise, so the wait for
+        the device work already queued stays in run()'s ms/frame."""
+        self._harvest()
+        self._sync()
+        t0 = time.perf_counter()
+        arrays = self.state_arrays()
+        tmp = f"{path}.tmp"
+        try:
+            with open(tmp, "wb") as f:
+                np.savez_compressed(f, **arrays)
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
+        ms = 1000.0 * (time.perf_counter() - t0)
+        self.state_save_ms.append(ms)
+        print(f"Saved resume state to {path} (frame {self.tracking_idx}, "
+              f"{ms:.1f} ms)")
+        return ms
+
+    def load_state(self, path):
+        """Restore a save_state checkpoint (JAX load_state) into this
+        pipeline, built from the same config; run(resume=True) then
+        continues after frame tracking_idx. Raises ValueError when the
+        checkpoint was saved for a sequence of another length. The device
+        pose chain and the harvested frontier are rebuilt from the raw RO
+        poses (the live chain never holds BA-refined ones) with the
+        fitness at 0; the pending track results, the pending BA write-back
+        and the look-ahead caches are dropped; the host generator is
+        reseeded from the resume point."""
+        data = _read_npz(path)
+        n_ckpt, n_ds = data["pose"].shape[0], self.dataset.num_frames
+        if n_ckpt != n_ds:
+            raise ValueError(
+                f"resume checkpoint was saved for a {n_ckpt}-frame sequence "
+                f"but the dataset has {n_ds} frames: resume with the same "
+                f"config the saving run used")
+        self.est_c2w_data = data["pose"].copy()
+        self.est_c2w_data_rel = data["pose_rel"].copy()
+        self.RO_c2w_data = data["ro_pose"].copy()
+        self.tracking_idx = int(data["tracking_idx"])
+        self.mapping_idx = int(data["mapping_idx"])
+        self._np_rng = np.random.default_rng(
+            (self._seed + 0x9E3779B9 * self.tracking_idx) & 0xFFFFFFFF)
+        self._restore_model_state(data)
+        self.mapper.load_opt_state_arrays(data)
+        self.mv.load_state_arrays(data)
+        self.kfdb.load_state_arrays(data)
+        self._gen.set_state(torch.from_numpy(data["gen_state"].copy()))
+        self._shift_gen.set_state(
+            torch.from_numpy(data["shift_gen_state"].copy()))
+
+        i = self.tracking_idx
+        self._dev_pose_prev = host_to_device(self.RO_c2w_data[i],
+                                             self.device)
+        self._dev_pose_prev2 = host_to_device(
+            self.RO_c2w_data[max(i - 1, 0)], self.device)
+        self._dev_fit_prev = torch.zeros((), dtype=torch.float32,
+                                         device=self.device)
+        self._last_harvested = [(j, self.RO_c2w_data[j].copy())
+                                for j in range(max(i - 1, 0), i + 1)]
+        self._last_fit = 0.0
+        self._pending = []
+        self._pending_ba = None
+        self._lookahead = None
+        self._map_frame_cache = None
+        print(f"Loaded resume state from {path} (continuing after frame "
+              f"{self.tracking_idx})")
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -84,17 +84,26 @@ def _try_load_reference_tiffs(pst_path: str, sizes: List[int]):
 def load_pst(pst_path: str, sizes: List[int]) -> Dict[int, np.ndarray]:
     """Returns {class: [n_slabs, size, 6]} candidate arrays.
 
-    n_slabs per class follows the reference layout: 7 / 7 / 6.
+    n_slabs per class follows the reference layout: 7 / 7 / 6. Generated
+    tables come from a process-wide cache keyed by `sizes` (generation takes
+    seconds per set): every caller gets its own copies, so the pipelines of
+    one process share no array.
     """
     if pst_path and os.path.isdir(pst_path):
         loaded = _try_load_reference_tiffs(pst_path, sizes)
         if loaded is not None:
             return loaded
-    n_slabs = {0: 7, 1: 7, 2: 6}
-    return {
-        c: np.stack([generate_pst(sizes[c], s) for s in range(n_slabs[c])])
-        for c in range(3)
-    }
+    key = tuple(int(x) for x in sizes)
+    if key not in _GENERATED:
+        n_slabs = {0: 7, 1: 7, 2: 6}
+        _GENERATED[key] = {
+            c: np.stack([generate_pst(sizes[c], s)
+                         for s in range(n_slabs[c])])
+            for c in range(3)}
+    return {c: t.copy() for c, t in _GENERATED[key].items()}
+
+
+_GENERATED: Dict[tuple, Dict[int, np.ndarray]] = {}
 
 
 def slab_index_table() -> np.ndarray:

@@ -43,6 +43,19 @@ class TrackResult(NamedTuple):
     origin_value: torch.Tensor  # fitness of the final iteration's pose
 
 
+def check_modes(ro: dict):
+    """Raise NotImplementedError for the RO settings the port does not
+    implement: eval_mode other than the fused-kernel 'pallas', and
+    brick_radius != 2."""
+    mode = ro.get("eval_mode", "gather")
+    if mode != "pallas":
+        raise NotImplementedError(
+            f"RO.eval_mode {mode!r} is not ported; the PyTorch tracker "
+            f"implements the fused-kernel mode 'pallas'")
+    if int(ro.get("brick_radius", 2)) != 2:
+        raise NotImplementedError("RO.brick_radius must be 2 (4^3 windows)")
+
+
 class ROTracker:
     def __init__(self, cfg, H: int, W: int, K: np.ndarray, vol_dims,
                  voxel_size: float, brick_layout, device):
@@ -57,14 +70,7 @@ class ROTracker:
         if self.brick_layout[0] < BRICK_SIDE:
             raise ValueError("brick-major volume needs bricks >= 4 voxels")
 
-        mode = ro.get("eval_mode", "gather")
-        if mode != "pallas":
-            raise NotImplementedError(
-                f"RO.eval_mode {mode!r} is not ported; the PyTorch tracker "
-                f"implements the fused-kernel mode 'pallas'")
-        if int(ro.get("brick_radius", 2)) != 2:
-            raise NotImplementedError("RO.brick_radius must be 2 (4^3 "
-                                      "windows)")
+        check_modes(ro)
         self.tsdf_interp = str(ro.get("tsdf_interp", "nearest"))
         if self.tsdf_interp not in ("nearest", "trilinear"):
             raise ValueError(f"unknown RO.tsdf_interp {self.tsdf_interp!r}")

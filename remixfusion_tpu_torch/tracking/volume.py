@@ -9,7 +9,10 @@ translation thresholds; "more": dominant-view-direction boxes,
 Volume.py:930-1082) run on the host between frames. Fusion always goes
 through the brick fuser on host-selected bricks (no bucket padding: the
 selected rows are fused as they are); the first frame seeds the volume by
-fusing every brick.
+fusing every brick. Each re-center records the bounds that held over the
+frames since the previous one (frame_to_vrange, Volume.py:1084-1105), and
+the whole volume state goes in and out of a resume checkpoint as dense
+[X, Y, Z] arrays (state_arrays / load_state_arrays).
 """
 
 from __future__ import annotations
@@ -68,6 +71,10 @@ class MovingVolume:
             * self.brick for i in range(3))
         self.vol_bnds[:, 1] = self.vol_bnds[:, 0] + \
             np.asarray(self.dims) * self.voxel_size
+        # bounds history: (first frame, last frame) -> the bounds that held
+        # over those frames; start_id is the first frame of the current ones
+        self.start_id = 0
+        self.frame_to_vrange: dict[tuple[int, int], np.ndarray] = {}
         nb = int(np.prod([d // self.brick for d in self.dims]))
         b3 = self.brick ** 3
         dev = self.device
@@ -154,9 +161,11 @@ class MovingVolume:
 
     # ----------------------------------------------------------- movement
 
-    def check_move(self, c2w: np.ndarray) -> bool:
-        """Re-center policy; shifts the device volume when thresholds trip
-        (Volume.py:930-1082). Returns True if the volume moved."""
+    def check_move(self, cur_id: int, c2w: np.ndarray) -> bool:
+        """Re-center policy for frame cur_id; shifts the device volume when
+        thresholds trip (Volume.py:930-1082). Returns True if the volume
+        moved, and then records the old bounds for the frames since the
+        previous move."""
         old_bnds = self.vol_bnds.copy()
         moved = False
 
@@ -208,7 +217,17 @@ class MovingVolume:
                 self.kfx, self.kfy, self.kfz = (
                     float(c2w[0, 3]), float(c2w[1, 3]), float(c2w[2, 3]))
 
+        if moved:
+            self.frame_to_vrange[(self.start_id, cur_id - 1)] = old_bnds
+            self.start_id = cur_id
         return moved
+
+    def frameid_to_vrange(self, frame_id: int) -> np.ndarray:
+        """Bounds active when frame_id was tracked (Volume.py:1084-1105)."""
+        for (s, e), b in self.frame_to_vrange.items():
+            if s <= frame_id <= e:
+                return b
+        return self.vol_bnds
 
     def _shift_to(self, new_bnds: np.ndarray):
         new_bnds = np.asarray(new_bnds, np.float64)
@@ -250,6 +269,68 @@ class MovingVolume:
 
     # ------------------------------------------------------------- export
 
+    def state_arrays(self) -> dict:
+        """The volume's part of a resume checkpoint, under the JAX package's
+        keys: the state as dense [X, Y, Z] (+ [3] for colour) float32 arrays
+        (mv_tsdf, mv_weight, mv_color), the bounds, the translation anchor,
+        the 'more' axis, the bounds history (vr_keys [n, 2], vr_vals
+        [n, 3, 2]) and the free-space phase."""
+        dense = self.dense_state()
+        keys = np.asarray(list(self.frame_to_vrange.keys()),
+                          np.int64).reshape(-1, 2)
+        vals = (np.stack([np.asarray(v, np.float64)
+                          for v in self.frame_to_vrange.values()])
+                if self.frame_to_vrange else np.zeros((0, 3, 2)))
+        return dict(
+            mv_tsdf=dense.tsdf.cpu().numpy(),
+            mv_weight=dense.weight.cpu().numpy(),
+            mv_color=dense.color.cpu().numpy(),
+            mv_bnds=np.asarray(self.vol_bnds, np.float64),
+            mv_kf=np.asarray([self.kfx, self.kfy, self.kfz], np.float64),
+            mv_first_axis=np.asarray(self.first_axis, np.int64),
+            mv_start_id=np.asarray(self.start_id, np.int64),
+            mv_fs_phase=np.asarray(self._fs_phase, np.int64),
+            vr_keys=keys, vr_vals=vals)
+
+    def load_state_arrays(self, data):
+        """Inverse of state_arrays (a mapping of numpy arrays); with
+        fs_scope 'seen' the carve history is reseeded from the loaded
+        volume."""
+        dims = tuple(self.dims)
+        for key, shape in (("mv_tsdf", dims), ("mv_weight", dims),
+                           ("mv_color", dims + (3,))):
+            if tuple(data[key].shape) != shape:
+                raise ValueError(f"{key} has shape {data[key].shape}, the "
+                                 f"volume {shape}")
+        self.vol_bnds = np.asarray(data["mv_bnds"], np.float64).copy()
+        self.kfx, self.kfy, self.kfz = (float(x) for x in data["mv_kf"])
+        self.first_axis = int(data["mv_first_axis"])
+        self.start_id = int(data["mv_start_id"])
+        self._fs_phase = int(data["mv_fs_phase"])
+        self.frame_to_vrange = {
+            (int(k[0]), int(k[1])): np.asarray(data["vr_vals"][i])
+            for i, k in enumerate(data["vr_keys"])}
+        dev = self.device
+        self.set_dense_state(tsdf_ops.VolumeState(
+            tsdf=torch.from_numpy(data["mv_tsdf"]).to(dev),
+            weight=torch.from_numpy(data["mv_weight"]).to(dev),
+            color=torch.from_numpy(data["mv_color"]).to(dev),
+            origin=torch.tensor(self.vol_bnds[:, 0], dtype=torch.float32,
+                                device=dev)))
+        self.reseed_seen_from_state()
+
+    def reseed_seen_from_state(self):
+        """Rebuild the fs_scope 'seen' carve history from the volume
+        (bricks whose min tsdf < 1). Before the selector exists (a fresh
+        process) the reseed is held and applied when it is built."""
+        if self.fs_scope != "seen":
+            return
+        tmin = self.state.tsdf.min(dim=1).values.cpu().numpy()
+        if hasattr(self, "_brick_sel"):
+            self._brick_sel.reseed_seen(tmin)
+        else:
+            self._pending_reseed = tmin
+
     def get_mesh(self):
         """Local-volume mesh (reference Volume.py:1280-1313: unmasked
         marching at level 0 on the dense view, nearest-voxel colors):
@@ -287,6 +368,10 @@ class MovingVolume:
                 hw[0], hw[1], fs_scope=self.fs_scope)
             if old is not None:  # keep the carve history across a K change
                 self._brick_sel.seen = old.seen
+            elif getattr(self, "_pending_reseed", None) is not None:
+                # a checkpoint was loaded before the selector existed
+                self._brick_sel.reseed_seen(self._pending_reseed)
+                self._pending_reseed = None
             self._brick_sel_key = key
         return self._brick_sel
 

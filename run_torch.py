@@ -2,7 +2,7 @@
 
     python run_torch.py --config configs/Synthetic/synthetic_bench.yaml \
         [--input_folder DIR] [--output DIR] [--max_frames N] \
-        [--device cuda|cpu]
+        [--resume PATH/resume.npz] [--device cuda|cpu]
 
 A real-sensor config (configs/Tum, ScanNet, Replica, BS3D, Fast_syn,
 uhumans) reads the capture in --input_folder (overriding data.datadir):
@@ -25,7 +25,12 @@ ATE (after BA), the RO-only ATE, the time per frame and per mapping round,
 the mesh paths with their vertex and face counts and the mesh stage times.
 Writes config.json, all_poses.npy, ro_poses.npy, tracking_result.txt,
 mesh.ply, mesh_cull_occlusion.ply and tracking_result.json to
-<output>/<exp_name>/. Score the mesh of a synthetic run with
+<output>/<exp_name>/; with mapping.state_every K also resume.npz every K
+frames, the whole state of the loop. `--resume <run>/resume.npz` loads
+such a state into a fresh pipeline of the same config and continues the
+loop after the saved frame (first-frame mapping skipped), with
+--max_frames meaning what it means in a fresh run: the loop stops at frame
+N. Score the mesh of a synthetic run with
 `python -m remixfusion_tpu_torch.tools.eval_recon --config <yaml>
 --run_dir <output>/<exp_name> --frames N`.
 """
@@ -46,6 +51,9 @@ def main():
                         help="overrides data.output from the config")
     parser.add_argument("--max_frames", type=int, default=None,
                         help="track only the first N frames of the sequence")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="resume.npz written by a run with "
+                             "mapping.state_every: continue after its frame")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args()
@@ -56,11 +64,15 @@ def main():
     if args.input_folder is not None:
         cfg["data"]["datadir"] = args.input_folder
     slam = RemixFusionTorch(cfg, device=args.device)
-    out = slam.run(max_frames=args.max_frames)
-    print(f"# frames={out['frames']} device={out['device']} "
+    if args.resume:
+        slam.load_state(args.resume)
+    out = slam.run(max_frames=args.max_frames, resume=bool(args.resume))
+    print(f"# frames={out['frames']} first_tracked={out['first_tracked']} "
+          f"device={out['device']} "
           f"ms_per_frame={out['ms_per_frame']:.3f} "
           f"mapping_rounds={out['mapping_rounds']} "
-          f"ms_per_round={out['ms_per_round']:.3f}")
+          f"ms_per_round={out['ms_per_round']:.3f} "
+          f"state_save_ms={out['state_save_ms']}")
     print(f"# ate_rmse_cm={out['ate_rmse_cm']:.3f} "
           f"ate_rmse_cm_ro_only={out['ate_rmse_cm_ro_only']:.3f}")
     print(f"# mesh={out['mesh_path']} verts={out['mesh_verts']} "

@@ -311,3 +311,53 @@ def test_extract_mesh_on_card_matches_cpu(cuda_device, enc, tmp_path):
     assert len(fc) > 1000
     assert abs(len(vg) - len(vc)) <= 0.01 * len(vc)
     assert abs(len(fg) - len(fc)) <= 0.01 * len(fc)
+
+
+@pytest.mark.gpu
+def test_resume_on_card_is_bitwise(cuda_device, tmp_path):
+    """A tiny run on the card saves its state mid-run; a fresh pipeline
+    loads it with every array bitwise the file's and continues to the
+    end."""
+    import json
+
+    from helpers import tiny_config
+    from remixfusion_tpu_torch.slam import RemixFusionTorch
+
+    def cfg(exp):
+        return tiny_config(
+            data={"output": str(tmp_path), "exp_name": exp,
+                  "synthetic": {"n_frames": 12, "orbit_degrees": 25.0}},
+            RO={"particle_iter_lens": 8, "depth_level": [4, 2, 1],
+                "eval_mode": "pallas", "PST_size": [256, 128, 128],
+                "init_size": 0.02, "count_search": 100},
+            volume={"voxel_size": 0.025},
+            mapping={"first_iters": 15, "iters": 2, "BA_iters": 2,
+                     "keyframe_every": 2, "map_every": 2, "sample": 128},
+            mesh={"vis": 0, "voxel_final": 0.1})
+
+    slam = RemixFusionTorch(cfg("a"), device=cuda_device)
+    slam.first_frame_mapping()
+    for idx in range(1, 7):
+        slam.step(idx, 12)
+    path = str(tmp_path / "resume.npz")
+    slam.save_state(path)
+    state = tuple(t.clone() for t in slam.mv.state)
+    del slam
+    torch.cuda.empty_cache()
+
+    slam2 = RemixFusionTorch(cfg("b"), device=cuda_device)
+    slam2.load_state(path)
+    with np.load(path) as f:
+        data = {k: f[k] for k in f.files}
+    got = slam2.state_arrays()
+    assert got.keys() == data.keys()
+    for k, v in data.items():
+        if v.dtype.kind == "U":
+            assert json.loads(str(got[k])) == json.loads(str(v)), k
+        else:
+            assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
+    assert all(torch.equal(a, b) for a, b in zip(slam2.mv.state, state))
+    out = slam2.run(resume=True)
+    assert out["tracked_frames"] == 5
+    assert np.isfinite(slam2.est_c2w_data).all()
+    assert out["ate_rmse_cm"] < 10.0

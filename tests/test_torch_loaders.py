@@ -478,7 +478,8 @@ def test_png_layout_loads_without_cv2(tmp_path):
 def test_factory_names_match_jax(tmp_path):
     """Every dataset name in configs/ and the mixed-case reference names
     resolve to the same loader class as in JAX; an unknown name raises
-    ValueError, synthetic_large NotImplementedError."""
+    ValueError; synthetic_large builds the multi-room building, as in
+    JAX."""
     import re
 
     from remixfusion_tpu.datasets import factory as jax_factory
@@ -511,8 +512,11 @@ def test_factory_names_match_jax(tmp_path):
         assert isinstance(ds_t, loaders.FileRGBDDataset) and len(ds_t) == 2
     with pytest.raises(ValueError):
         get_dataset(_cfg("kinectfusion", tmp_path))
-    with pytest.raises(NotImplementedError):
-        get_dataset(_cfg("synthetic_large", tmp_path))
+    large = _cfg("synthetic_large", tmp_path)
+    ds_t = get_dataset(copy.deepcopy(large))
+    assert type(ds_t).__name__ == type(
+        jax_get_dataset(copy.deepcopy(large))).__name__ == \
+        "SyntheticLargeDataset"
 
 
 def _check_layouts(tmp_path):

@@ -17,7 +17,11 @@ Two views of the same 8-frame run:
   - free-running (trilinear): the port runs alone; its RO-only ATE must be
     within 0.1 cm of the JAX run's. The loop is not held pose by pose here:
     one such discrete step moves every later frame, whatever the
-    implementation. Quality must agree, not the bits."""
+    implementation. Quality must agree, not the bits.
+The corridor lockstep runs the same way on a small synthetic_large walk
+whose volume re-centres every few frames: the re-centre bookkeeping
+(vol_bnds, start_id, frame_to_vrange) must be bitwise the JAX one after
+every frame."""
 
 import copy
 
@@ -39,6 +43,7 @@ from remixfusion_tpu_torch.utils.convert import volume_state_from_numpy
 torch.set_num_threads(1)
 
 N = 8
+N_CORRIDOR = 11
 
 
 def _cfg(tmp, interp):
@@ -57,15 +62,37 @@ def _state_np(vs):
     return tuple(np.asarray(a) for a in vs)
 
 
-def _jax_run(interp, tmp):
-    """The JAX pipeline's run, with its state before every frame."""
-    cfg = _cfg(tmp, interp)
+def _corridor_cfg(tmp):
+    """A small two-room building walked at ~25 cm per frame (ramp of 3
+    frames), its volume re-centred whenever the camera has moved half a
+    metre along an axis: two re-centres within N_CORRIDOR frames."""
+    cfg = _cfg(tmp, "nearest")
+    cfg["dataset"] = "synthetic_large"
+    cfg["data"]["synthetic"] = {
+        "n_frames": 80, "n_rooms": 2, "room_width": 3.4, "room_depth": 3.2,
+        "corridor_width": 2.0, "n_boxes_per_room": 4,
+        "n_spheres_per_room": 2, "ramp_frames": 3}
+    cfg["volume"]["t_treshold"] = 0.5
+    for key in ("bound", "marching_cubes_bound"):
+        cfg["mapping"][key] = [[0.0, 7.0], [0.0, 3.0], [0.0, 5.4]]
+    return cfg
+
+
+def _bounds(mv):
+    return (mv.vol_bnds.copy(), mv.start_id,
+            {k: v.copy() for k, v in mv.frame_to_vrange.items()})
+
+
+def _jax_run(interp, tmp, cfg=None, n=N):
+    """The JAX pipeline's run of n frames, with its state before every
+    frame and its re-centre bookkeeping after it."""
+    cfg = _cfg(tmp, interp) if cfg is None else cfg
     j = RemixFusionTPU(copy.deepcopy(cfg))
     p0 = j._first_pose(j.dataset[0])
     j.est_c2w_data[0] = p0
     j.RO_c2w_data[0] = p0
-    before, tracked = {}, {}
-    for i in range(1, N):
+    before, tracked, bounds = {}, {}, {}
+    for i in range(1, n):
         init = (j.est_c2w_data[0] if j._dev_pose_prev is None
                 else j._predict_dev(j._dev_pose_prev, j._dev_pose_prev2,
                                     j._dev_fit_prev))
@@ -79,10 +106,12 @@ def _jax_run(interp, tmp):
                      for fid, r, _ in j._pending_track])
         j.track_frame(i, j.dataset[i])
         tracked[i] = np.asarray(j._pending_track[-1][1].c2w)
+        bounds[i] = _bounds(j.mv)
     j._harvest_pending_track()
     after = _state_np(j.mv.state)
     j.close()
-    return dict(cfg=cfg, before=before, tracked=tracked, after=after,
+    return dict(cfg=cfg, n=n, before=before, tracked=tracked, after=after,
+                bounds=bounds,
                 ro=j.RO_c2w_data.copy(), gt=j.pose_gt, tracker=j.tracker,
                 dataset=j.dataset)
 
@@ -93,7 +122,10 @@ def jax_runs(tmp_path_factory):
 
     def get(interp):
         if interp not in runs:
-            runs[interp] = _jax_run(interp, tmp_path_factory.mktemp(interp))
+            tmp = tmp_path_factory.mktemp(interp)
+            runs[interp] = _jax_run(
+                "nearest", tmp, _corridor_cfg(tmp), N_CORRIDOR) \
+                if interp == "corridor" else _jax_run(interp, tmp)
         return runs[interp]
     return get
 
@@ -115,16 +147,18 @@ def _gap(a, b):
             np.degrees(Rotation.from_matrix(rel).magnitude()))
 
 
-@pytest.mark.parametrize("interp", ["nearest", "trilinear"])
-def test_slice_lockstep_matches_jax(jax_runs, interp, tmp_path):
-    run = jax_runs(interp)
+def _lockstep(run, tmp_path, after_frame=None):
+    """The port tracking every frame from the JAX pipeline's state; each
+    RO pose within 2 mm / 0.1 deg of the JAX one (jitted, else eager), the
+    fused volume held where the poses agree. after_frame(i, slam) runs
+    after each frame. Returns (slam, frames fused from the same pose)."""
     before, after = run["before"], run["after"]
     cfg = copy.deepcopy(run["cfg"])
     cfg["data"]["output"] = str(tmp_path)
     s = RemixFusionTorch(cfg, device="cpu")
     t = lambda a: torch.tensor(a)  # noqa: E731
-    fused_same = 0
-    for i in range(1, N):
+    fused_same, n = 0, run["n"]
+    for i in range(1, n):
         b = before[i]
         s.mv.state = volume_state_from_numpy(*b["state"], "cpu")
         if b["chain"] is not None:
@@ -143,6 +177,8 @@ def test_slice_lockstep_matches_jax(jax_runs, interp, tmp_path):
             assert np.abs(own - b["init"]).max() < 1e-5, i
         s._predict_init = lambda: t(b["init"])
         s.track_frame(i, s.dataset[i])
+        if after_frame is not None:
+            after_frame(i, s)
         ours = s._pending[-1][1].c2w.numpy()
         dt, ang = _gap(ours, run["tracked"][i])
         if not (dt < 2e-3 and ang < 0.1):
@@ -152,15 +188,44 @@ def test_slice_lockstep_matches_jax(jax_runs, interp, tmp_path):
         if dt > 1e-5:
             continue
         fused_same += 1
-        ref = before[i + 1]["state"] if i + 1 < N else after
+        ref = before[i + 1]["state"] if i + 1 < n else after
         tsdf, weight = s.mv.state.tsdf.numpy(), s.mv.state.weight.numpy()
         # poses equal to 1e-5 m still move a projection across a pixel
         # boundary here and there: hold all but 1e-4 of the voxels
         close = (weight == ref[1]) & (np.abs(tsdf - ref[0]) < 1e-3)
         assert close.mean() > 0.9999, (i, (~close).sum())
-    assert fused_same >= 3
     s._harvest()
-    assert np.array_equal(s.mv.vol_bnds[:, 0], after[3])
+    return s, fused_same
+
+
+@pytest.mark.parametrize("interp", ["nearest", "trilinear"])
+def test_slice_lockstep_matches_jax(jax_runs, interp, tmp_path):
+    run = jax_runs(interp)
+    s, fused_same = _lockstep(run, tmp_path)
+    assert fused_same >= 3
+    assert np.array_equal(s.mv.vol_bnds[:, 0], run["after"][3])
+
+
+def test_corridor_lockstep_recentres_like_jax(jax_runs, tmp_path):
+    """A synthetic_large walk re-centring at least twice in N_CORRIDOR
+    frames, in lockstep:
+    vol_bnds, start_id and frame_to_vrange bitwise the JAX pipeline's after
+    every frame, the poses within the slice test's tolerance."""
+    run = jax_runs("corridor")
+
+    def same_bounds(i, s):
+        bnds, start, hist = run["bounds"][i]
+        assert np.array_equal(s.mv.vol_bnds, bnds), i
+        assert s.mv.start_id == start, i
+        assert s.mv.frame_to_vrange.keys() == hist.keys(), i
+        for k, v in hist.items():
+            assert np.array_equal(s.mv.frame_to_vrange[k], v), (i, k)
+            assert np.array_equal(s.mv.frameid_to_vrange(k[1]), v)
+
+    s, fused_same = _lockstep(run, tmp_path, same_bounds)
+    assert len(s.mv.frame_to_vrange) >= 2
+    assert fused_same >= 3
+    assert np.array_equal(s.mv.vol_bnds[:, 0], run["after"][3])
 
 
 def test_slice_free_running_ate_matches_jax(jax_runs, tmp_path):

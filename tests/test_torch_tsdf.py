@@ -186,8 +186,12 @@ def test_moving_volume_recenters_like_jax():
         p = pose.copy()
         p[0, 3] += dx
         p[2, 3] -= 0.5 * dx
-        assert tv.check_move(p) == jv.check_move(10 + i, p)
+        assert tv.check_move(10 + i, p) == jv.check_move(10 + i, p)
         assert np.array_equal(tv.vol_bnds, jv.vol_bnds)
+        assert tv.start_id == jv.start_id
+        assert tv.frame_to_vrange.keys() == jv.frame_to_vrange.keys()
+        for k, b in jv.frame_to_vrange.items():
+            assert np.array_equal(tv.frame_to_vrange[k], b)
         for a, r in zip(tv.state, jv.state):
             assert np.array_equal(a.numpy(), np.asarray(r))
 
