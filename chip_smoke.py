@@ -16,14 +16,14 @@ prints no result line):
      at full width (640x480, PST tiers 10240/3072/1024, 20 particle
      iterations, 300^3 local volume at 2 cm in 10^3 bricks, 200^3 global
      grid, 2048-ray map batches) through RemixFusionTorch.run for the first
-     N_FRAMES frames (the one cut): first-frame mapping, tracking, a mapping
-     round every 5 frames. Kernel launch counts are zeroed just before and
-     read just after: brick_eval launched 20 times per tracked frame,
-     hash_table_grad never; RO-only and full ATE below 2 cm. The run ends
-     in finalize, outside the timed loop: mesh.ply (the residual field's
-     SDF and weight queried on the card over the dense 3 cm grid of the
-     4 m marching-cubes bound, 134^3 = 2.41 M points; marching tetrahedra
-     on the host) and mesh_cull_occlusion.ply;
+     N_FRAMES["A"] frames (the one cut): first-frame mapping, tracking, a
+     mapping round every 5 frames. Kernel launch counts are zeroed just
+     before and read just after: brick_eval launched 20 times per tracked
+     frame, hash_table_grad never; RO-only and full ATE below 2 cm. The
+     run ends in finalize, outside the timed loop: mesh.ply (the residual
+     field's SDF and weight queried on the card over the dense 3 cm grid
+     of the 4 m marching-cubes bound, 134^3 = 2.41 M points; marching
+     tetrahedra on the host) and mesh_cull_occlusion.ply;
   2b. mesh A: both meshes exist, are non-empty and have every vertex in
      [-0.5, 4.5]^3; the card's SDF grid agrees with a CPU copy of the same
      scene on a fixed 65,536-point subset of the grid within 1e-4 absolute
@@ -101,7 +101,42 @@ prints no result line):
      bitwise the kept copies; run(resume=True) over frames 51..99:
      brick_eval launched 20 x 49 times, full and RO-only ATE below 3 cm;
      the gap to the uninterrupted run's RO-only ATE is printed;
-  10. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
+  10. kernel checks of the other tracker modes, on slice A's last-frame
+     tiers (after phase 3): the plain brick mode (RO.eval_mode brick,
+     radius 2, a float32 view) against brick_eval fed the same values (the
+     volume rounded through bfloat16 first), both interpolation modes; and
+     gather against brick radius 2 at search size SMALL_SEARCH, where every
+     moved vertex stays in its window; phase 3's tolerance. After phase 5:
+     hash_table_grad against its plain version on the DenseGrid table at
+     synthetic_bench.yaml's widths (4 dense levels 16^3 .. 800^3, ~522.6 M
+     rows, 4.2 GB; DENSE_POINTS seeded points in [0, 1]^3 and a seeded
+     output gradient), phase 5's tolerance, untouched rows exactly zero;
+  11. gather: configs/Synthetic/corridor_v25g.yaml (the corridor with
+     RO.eval_mode gather, a float32 track view) over GATHER_FRAMES frames,
+     all read from the disk render cache the corridor phase filled (none
+     rendered here): brick_eval and hash_table_grad never launched, at
+     least GATHER_MIN_RECENTRES re-centres, full and RO-only ATE below
+     3 cm, meshes inside the bound;
+  12. the other slices, at their configs' widths through RemixFusionTorch.run
+     as in phase 2, each with its launch and ATE checks (below 2 cm):
+     triplane (configs/Synthetic/bench_triplane.yaml, 40 frames): every
+     plane and line finite, the first-frame map loss falling, then its mesh
+     phase as in 2b; fast (configs/Synthetic/synthetic_fast.yaml,
+     Frequency and 128-wide decoders, 40 frames): no field table, the map
+     optimizer's field group empty; dense (synthetic_bench.yaml with
+     volume.brick_fusion false, 30 frames: a dense 300^3 volume, tile 60,
+     budget 57 of 125 tiles): brick_eval on layout (1, 300, 300), then held
+     against its plain version on the last frame's tiers (phase 3's
+     tolerance), and the dense fuse of that frame on the card against a
+     CPU recompute on FUSE_SUBSET of the voxels it updated (tsdf within
+     FUSE_TOL, weights equal); brick (synthetic_bench.yaml with
+     RO.eval_mode brick, brick_radius 3, tsdf_interp trilinear and
+     volume.sel_reuse 2, 30 frames): brick_eval never launched, and the
+     count of frames that fused a reused selection printed and above 0;
+     ab_triplane (configs/Synthetic/ab_triplane.yaml, the 320x240 verify
+     scene with Triplane) and more (configs/Synthetic/synthetic_more.yaml,
+     Frequency with the 'more' re-centre policy), 20 frames each;
+  13. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
      and power limit; and last the {"ok": true, ...} line.
 Every kernel is timed two ways: device_ms, the device time of one call (a
 CUDA graph of many calls replayed back to back, timed with CUDA events,
@@ -118,11 +153,25 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CONFIGS = {"A": os.path.join(ROOT, "configs", "Synthetic",
-                             "synthetic_bench.yaml"),
-           "B": os.path.join(ROOT, "configs", "Synthetic",
-                             "bench_hashgrid.yaml")}
-N_FRAMES = 60
+SYN = os.path.join(ROOT, "configs", "Synthetic")
+# the slices driven through RemixFusionTorch.run: config, frames (the cut),
+# the overrides besides data.output
+CONFIGS = {"A": os.path.join(SYN, "synthetic_bench.yaml"),
+           "B": os.path.join(SYN, "bench_hashgrid.yaml"),
+           "triplane": os.path.join(SYN, "bench_triplane.yaml"),
+           "fast": os.path.join(SYN, "synthetic_fast.yaml"),
+           "dense": os.path.join(SYN, "synthetic_bench.yaml"),
+           "brick": os.path.join(SYN, "synthetic_bench.yaml"),
+           "ab_triplane": os.path.join(SYN, "ab_triplane.yaml"),
+           "more": os.path.join(SYN, "synthetic_more.yaml")}
+N_FRAMES = {"A": 60, "B": 60, "triplane": 40, "fast": 40, "dense": 30,
+            "brick": 30, "ab_triplane": 20, "more": 20}
+OVERRIDES = {
+    "dense": {"volume": {"brick_fusion": False}},
+    "brick": {"RO": {"eval_mode": "brick", "brick_radius": 3,
+                     "tsdf_interp": "trilinear"},
+              "volume": {"sel_reuse": 2}},
+}
 ATE_BAR_CM = 2.0
 # the real-layout phases: config, layout written, dataset name override,
 # colour size (H, W) when it differs from depth, orbit degrees per frame.
@@ -144,6 +193,20 @@ CORRIDOR_STATE_EVERY = 50
 CORRIDOR_ATE_BAR_CM = 3.0
 CORRIDOR_MIN_RECENTRES = 3
 CORRIDOR_MESH_PAD = 0.5
+# [gather]: corridor_v25g.yaml (the corridor with RO.eval_mode gather) over
+# frames the corridor phase rendered into the disk cache
+GATHER = os.path.join(SYN, "corridor_v25g.yaml")
+GATHER_FRAMES = 50
+GATHER_MIN_RECENTRES = 2
+# the DenseGrid table at synthetic_bench.yaml's widths (desired 200, base
+# 16, 4 dense levels: 16^3, 59^3, 218^3, 800^3 rows) and the points of the
+# render backward of a map step
+DENSE_DESIRED = 200
+DENSE_POINTS = 151040
+# the search size at which every moved vertex stays in its 4^3 window
+SMALL_SEARCH = 0.002
+FUSE_SUBSET = 65536
+FUSE_TOL = 1e-5
 MESH_BOX = (-0.5, 4.5)
 SDF_TOL = 1e-4
 SDF_SUBSET = 65536
@@ -239,28 +302,66 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
 
+def slice_config(label):
+    """The slice's config with data.output and OVERRIDES[label] set."""
+    from remixfusion_tpu_torch.config import load_config
+
+    cfg = load_config(CONFIGS[label])
+    cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke", label)
+    for sec, vals in OVERRIDES.get(label, {}).items():
+        cfg[sec].update(vals)
+    return cfg
+
+
+def count_dense_fusions(slam, counts):
+    """Count, in `counts`, the dense volume's frames fused on frustum tiles
+    and with the full sweep (frame_tiles' decision, wrapped)."""
+    frame_tiles = slam.mv.frame_tiles
+
+    def counted(*args):
+        tiles = frame_tiles(*args)
+        key = "full sweep" if tiles is None else "tiled"
+        counts[key] = counts.get(key, 0) + 1
+        return tiles
+
+    slam.mv.frame_tiles = counted
+
+
 def phase_slice(torch, label):
     """Drive slice `label` through RemixFusionTorch.run with every kernel's
-    launch count zeroed just before and read just after."""
+    launch count zeroed just before and read just after: brick_eval
+    launched 20 times per tracked frame in eval_mode pallas and never
+    otherwise, hash_table_grad twice per map iteration with a hash-grid
+    field and never otherwise."""
     import numpy as np
 
-    from remixfusion_tpu_torch.config import load_config
+    from remixfusion_tpu_torch.models.encodings import HashGridEncoding
     from remixfusion_tpu_torch.ops import brick_eval as be
     from remixfusion_tpu_torch.ops import hash_enc as he
     from remixfusion_tpu_torch.slam import RemixFusionTorch
 
-    cfg = load_config(CONFIGS[label])
-    cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke", label)
+    cfg = slice_config(label)
+    frames = N_FRAMES[label]
     t0 = time.time()
     slam = RemixFusionTorch(cfg, device="cuda")
-    slam.preload(N_FRAMES + 1)
-    print(f"[slice {label}] {os.path.relpath(CONFIGS[label], ROOT)}: set-up "
-          f"(seed fusion, {N_FRAMES + 1} frames rendered) "
-          f"{time.time() - t0:.1f} s", flush=True)
+    slam.preload(frames + 1)
+    print(f"[slice {label}] {os.path.relpath(CONFIGS[label], ROOT)} "
+          f"overrides {OVERRIDES.get(label, {})}: grid.enc "
+          f"{cfg['grid']['enc']}, RO.eval_mode {slam.tracker.eval_mode} "
+          f"(brick_radius {slam.tracker.brick_r}, "
+          f"{slam.tracker.tsdf_interp}, track view "
+          f"{slam.tracker.track_dtype}), volume {slam.mv.dims} layout "
+          f"{slam.mv.brick_layout()}; {frames} frames; set-up (seed fusion, "
+          f"{frames + 1} frames rendered) {time.time() - t0:.1f} s",
+          flush=True)
+    fusions = {}
+    if not slam.mv.brick:
+        count_dense_fusions(slam, fusions)
     torch.cuda.reset_peak_memory_stats()
     be.brick_eval_volume.launches = 0
     he.hash_table_grad.launches = 0
-    out = slam.run(max_frames=N_FRAMES)
+    out = slam.run(max_frames=frames)
+    out["dense_fusions"] = fusions
     launches = {"brick_eval": be.brick_eval_volume.launches,
                 "hash_table_grad": he.hash_table_grad.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -275,14 +376,18 @@ def phase_slice(torch, label):
           f"{out['first_frame_mapping_ms']} ate_rmse_cm={out['ate_rmse_cm']} "
           f"ate_rmse_cm_ro_only={out['ate_rmse_cm_ro_only']} "
           f"map_iters={out['map_iters']} ba_iters={out['ba_iters']} "
-          f"launches={launches} max_memory_allocated={peak}", flush=True)
+          f"launches={launches} max_memory_allocated={peak}"
+          + (f" dense fusions {fusions}" if fusions else ""), flush=True)
     print(f"[slice {label}] first-frame map loss every 25 iterations: "
           f"{[float(v) for v in ffl[::25]]} last {float(ffl[-1])}",
           flush=True)
-    if launches["brick_eval"] != iters * out["tracked_frames"]:
+    want = (iters * out["tracked_frames"]
+            if slam.tracker.eval_mode == "pallas" else 0)
+    if launches["brick_eval"] != want:
         fail(f"slice {label}: brick_eval launched {launches['brick_eval']} "
-             f"times, expected {iters * out['tracked_frames']}")
-    want = 2 * out["map_iters"] if label == "B" else 0
+             f"times, expected {want}")
+    want = (2 * out["map_iters"]
+            if isinstance(slam.scene.embed_res_fn, HashGridEncoding) else 0)
     if launches["hash_table_grad"] != want:
         fail(f"slice {label}: hash_table_grad launched "
              f"{launches['hash_table_grad']} times, expected {want}")
@@ -380,8 +485,8 @@ def tier_cases(torch, slam, frames):
         params, pix, base = tr.tier_inputs(
             tr.class_level[cls], 0, c2w[:3, :3], c2w[:3, 3], ss, vn,
             slam.mv.state.origin)
-        cases.append((params, pix, base, slam.mv.state.tsdf,
-                      tr.brick_layout, tr.pst_t[cls][0]))
+        cases.append((params, pix, base, slam.mv.state.tsdf.reshape(
+            -1, tr.brick_layout[0] ** 3), tr.brick_layout, tr.pst_t[cls][0]))
     return cases
 
 
@@ -490,13 +595,13 @@ def touched_rows(he, enc, x, n_rows):
     return mask, idx, torch.stack(weights, 1)
 
 
-def phase_hash_kernel(torch, captured):
-    """hash_table_grad against its plain version at the shapes of slice B's
-    last map step: the render points' backward and the smoothness points'."""
+def phase_hash_kernel(torch, captured, table="HashGrid", n_graph=50):
+    """hash_table_grad against its plain version on each captured call
+    (enc, x, grad_out, n_rows): at the shapes of slice B's last map step
+    (the render points' backward and the smoothness points'), or on the
+    DenseGrid table. Returns the shapes' records."""
     from remixfusion_tpu_torch.ops import hash_enc as he
 
-    if len(captured) != 2:
-        fail(f"captured {len(captured)} hash_table_grad calls, expected 2")
     shapes = []
     for enc, x, g, n_rows in captured:
         n, L = x.shape[0], enc.n_levels
@@ -525,10 +630,10 @@ def phase_hash_kernel(torch, captured):
 
         lib_err = float((library() - ref).abs().max())
         t = measure(torch, lambda: he.hash_table_grad(enc, x, g, n_rows),
-                    50, 5)
+                    n_graph, 5)
         p_ms = time_cuda(torch, lambda: he.hash_table_grad_reference(
             enc, x, g, n_rows), 10, 2)
-        lib_t = measure(torch, library, 50, 5)
+        lib_t = measure(torch, library, n_graph, 5)
         # bytes: x and grad_out read once, the table gradient written once;
         # operations: ~34 FP32 per (point, level) for positions and
         # weights, 4 per corner for its weight and float2 contribution
@@ -536,7 +641,7 @@ def phase_hash_kernel(torch, captured):
         ops = n * L * (34 + 8 * 4)
         t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
         shapes.append({
-            "N": n, "levels": L, "rows": n_rows,
+            "table": table, "N": n, "levels": L, "rows": n_rows,
             "device_ms": t["device_ms"], "call_ms": t["call_ms"],
             "plain_ms": p_ms, "library_ms": lib_t["call_ms"],
             "library_device_ms": lib_t["device_ms"],
@@ -547,21 +652,31 @@ def phase_hash_kernel(torch, captured):
             "rows_touched": int(mask.sum()),
             "atomics_float2_unmerged": n * L * 8,
             "privatized_rows": he.privatized_rows(enc)})
-        print(f"[kernel] hash_table_grad N={n} L={L} rows={n_rows}: "
+        print(f"[kernel] hash_table_grad ({table}) N={n} L={L} "
+              f"rows={n_rows}: "
               f"max|d|={err:.3e} (max|ref| {scale:.3e}) device "
               f"{t['device_ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
               f"plain {p_ms:.4f} ms, index_add_ {lib_t['call_ms']:.4f} ms "
               f"(device {lib_t['device_ms']:.4f}), bound "
               f"{max(t_ops, t_bytes):.4f} ms ({int(mask.sum())} rows "
               f"touched)", flush=True)
-    mean = lambda k: sum(s[k] for s in shapes) / len(shapes)  # noqa: E731
+        del ref, mask, idx, w, vals
+        torch.cuda.empty_cache()
+    return shapes
+
+
+def hash_kernel_record(shapes):
+    """The kernels-line record of hash_table_grad: the means over slice B's
+    shapes, every shape listed."""
+    main = [s for s in shapes if s["table"] == "HashGrid"]
+    mean = lambda k: sum(s[k] for s in main) / len(main)  # noqa: E731
     return {
         "name": "hash_table_grad", "route": "cuda",
         "source": "remixfusion_tpu_torch/csrc/hash_enc.cu",
         "replaces": "remixfusion_tpu/ops/pallas/hash_enc.py:139",
         "ms": mean("device_ms"), "device_ms": mean("device_ms"),
         "call_ms": mean("call_ms"), "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"), "bound_by": shapes[0]["bound_by"],
+        "bound_ms": mean("bound_ms"), "bound_by": main[0]["bound_by"],
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "library_ms": mean("library_ms"), "shapes": shapes,
     }
@@ -974,6 +1089,274 @@ def phase_corridor_resumed(torch, kept, out_full):
     return slam, out, launches
 
 
+def check_field(slam, label):
+    """[triplane]: every plane and line of the field is a finite table of
+    the encoder's widths; [fast]: Frequency holds no table and the map
+    optimizer's field group is empty."""
+    scene = slam.scene
+    if label == "triplane":
+        enc = scene.embed_res_fn
+        keys = sorted(scene.hash_table)
+        want = sorted(f"{k}_{lvl}_{a}" for k in ("plane", "line")
+                      for lvl in range(enc.n_levels) for a in range(3))
+        if keys != want:
+            fail(f"triplane: tables {keys}, expected {want}")
+        print(f"[slice triplane] {len(keys)} tables (resolutions "
+              f"{enc.resolutions}), all finite", flush=True)
+    else:
+        groups = slam.mapper.map_opt.param_groups
+        if scene.hash_table is not None or groups[0]["params"]:
+            fail("fast: the Frequency field holds parameters")
+        print(f"[slice fast] {scene.embed_res_fn.out_dim} Frequency "
+              f"features, no field table; map optimizer groups "
+              f"{[len(g['params']) for g in groups]} (field, decoders)",
+              flush=True)
+
+
+def dense_fuse_check(torch, slam, frames):
+    """[dense]: one frame's dense fuse (the last frame's tiles at its
+    tracked pose) on the card against a CPU recompute from the same
+    volume, on a fixed FUSE_SUBSET of the voxels it updated: tsdf within
+    FUSE_TOL, weights equal, colours within one 8-bit step."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.ops import tsdf as tsdf_ops
+    from remixfusion_tpu_torch.slam.pipeline import quantize_depth, \
+        quantize_rgb
+
+    mv = slam.mv
+    last = frames - 1
+    batch = slam.dataset[last]
+    c2w = slam.RO_c2w_data[last]
+    tiles = mv.frame_tiles(c2w, np.asarray(batch["depth"]), slam.K)
+    depth = torch.tensor(quantize_depth(batch["depth"]))
+    rgb255 = torch.floor(torch.tensor(quantize_rgb(batch["rgb"])) * 255.0)
+    args = (depth, rgb255, torch.tensor(slam.K), torch.tensor(c2w))
+    kw = dict(voxel_size=mv.voxel_size, trunc_margin=mv.trunc_margin,
+              weight_clamp=mv.weight_clamp, tiles=tiles, tile=mv.tile)
+    cpu = tsdf_ops.VolumeState(*(a.cpu() for a in mv.state))
+    card = tsdf_ops.VolumeState(*(a.clone() for a in mv.state))
+    w0 = cpu.weight.clone()
+    t0 = time.time()
+    tsdf_ops.fuse_dense(card, *(a.cuda() for a in args),
+                        obs_weight=torch.ones((), device="cuda"), **kw)
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    tsdf_ops.fuse_dense(cpu, *args, obs_weight=torch.ones(()), **kw)
+    t_cpu = time.time() - t0
+    upd = torch.nonzero((cpu.weight != w0).reshape(-1))[:, 0]
+    if upd.numel() < FUSE_SUBSET:
+        fail(f"dense: the frame updated {upd.numel()} voxels, fewer than "
+             f"{FUSE_SUBSET}")
+    pick = upd[torch.from_numpy(np.sort(np.random.default_rng(0).choice(
+        upd.numel(), FUSE_SUBSET, replace=False)))]
+    got = [a.reshape(-1, *a.shape[3:])[pick.cuda()].cpu()
+           for a in card[:3]]
+    ref = [a.reshape(-1, *a.shape[3:])[pick] for a in cpu[:3]]
+    err = float((got[0] - ref[0]).abs().max())
+    c_err = float((got[2] - ref[2]).abs().max())
+    in_frustum = len(tsdf_ops.frustum_tiles(
+        mv.dims, mv.tile, mv.vol_bnds[:, 0], mv.voxel_size, slam.K, c2w,
+        *batch["depth"].shape,
+        max_depth=float(np.max(batch["depth"])) + mv.trunc_margin + 0.1,
+        pad_px=16))
+    how = "the full sweep" if tiles is None else f"{len(tiles)} tiles"
+    print(f"[dense] fuse of frame {last} ({in_frustum} of "
+          f"{int(np.prod([d // mv.tile for d in mv.dims]))} tiles of "
+          f"{mv.tile}^3 in its frustum, budget {mv.tile_budget}: {how}): "
+          f"{upd.numel()} voxels updated; card vs CPU on {FUSE_SUBSET} of "
+          f"them: tsdf max|d| {err:.3e}, weights "
+          f"{'equal' if torch.equal(got[1], ref[1]) else 'DIFFER'}, colour "
+          f"max|d| {c_err}; card {1000 * t_card:.1f} ms, CPU "
+          f"{1000 * t_cpu:.1f} ms", flush=True)
+    if not (err <= FUSE_TOL and torch.equal(got[1], ref[1])
+            and c_err <= 1.0):
+        fail(f"dense: the card's fuse differs from the CPU recompute (tsdf "
+             f"{err} > {FUSE_TOL}, or weights, or colour {c_err})")
+    return {"voxels_updated": int(upd.numel()), "tsdf_max_abs_err": err,
+            "card_ms": 1000 * t_card, "cpu_ms": 1000 * t_cpu}
+
+
+def mode_tracker(torch, slam, mode, interp):
+    """A tracker of slam's config in `mode` (radius 2, float32 view)."""
+    import copy
+
+    from remixfusion_tpu_torch.tracking.rotracker import ROTracker
+
+    cfg = copy.deepcopy(slam.config)
+    cfg["RO"].update(eval_mode=mode, brick_radius=2, tsdf_interp=interp)
+    cfg["volume"]["track_dtype"] = "float32"
+    return ROTracker(cfg, slam.dataset.H, slam.dataset.W, slam.K,
+                     slam.mv.dims, slam.mv.voxel_size,
+                     slam.mv.brick_layout(), slam.device)
+
+
+def compare_costs(torch, got, ref, what):
+    """Phase 3's tolerance between two cost vectors: the same 1e6-guard
+    positions, max |d| < TOL_MAX and mean < TOL_MEAN elsewhere."""
+    if not torch.equal(got >= 1e6, ref >= 1e6):
+        fail(f"{what}: guard positions differ")
+    keep = ref < 1e6
+    d = (got - ref).abs()[keep]
+    e_max = float(d.max()) if d.numel() else 0.0
+    e_mean = float(d.mean()) if d.numel() else 0.0
+    if not (e_max < TOL_MAX and e_mean < TOL_MEAN):
+        fail(f"{what}: max {e_max} mean {e_mean}")
+    return e_max, e_mean
+
+
+def phase_mode_kernels(torch, slam, frames):
+    """On slice A's last-frame tiers: the plain brick mode (r = 2, float32
+    view) against brick_eval fed the same values (the volume rounded to
+    bfloat16 first, so the kernel's rounding changes nothing), both
+    interpolation modes; and gather against brick r = 2 at a search size
+    (SMALL_SEARCH) at which every moved vertex stays in its window."""
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.slam.pipeline import quantize_depth
+
+    tr = slam.tracker
+    last = frames - 1
+    depth = torch.tensor(quantize_depth(slam.dataset[last]["depth"]),
+                         device=slam.device)
+    c2w = torch.tensor(slam.RO_c2w_data[last], device=slam.device)
+    R, T = c2w[:3, :3], c2w[:3, 3]
+    origin = slam.mv.state.origin
+    vn = tr.vertex_normal_maps(depth)
+    q = slam.mv.state.tsdf.to(torch.bfloat16).to(torch.float32)
+    ss = tr.init_search_size()
+    out = []
+    for interp in ("nearest", "trilinear"):
+        tb = mode_tracker(torch, slam, "brick", interp)
+        for cls in range(3):
+            level = tr.class_level[cls]
+            params, pix, base = tr.tier_inputs(level, 0, R, T, ss, vn,
+                                               origin)
+            k = be.brick_eval_volume(params, pix, base, q, tr.brick_layout,
+                                     tr.pst_t[cls][0], interp=interp)
+            p = tb.eval_brick(tr.pst[cls][0], level, 0, R, T, ss, vn,
+                              q.reshape(-1), origin)
+            e = compare_costs(torch, p, k, f"brick mode r=2 vs brick_eval "
+                              f"C={k.numel()} P={pix.shape[0]} {interp}")
+            out.append({"check": "brick r=2 vs brick_eval", "C": k.numel(),
+                        "P": pix.shape[0], "interp": interp,
+                        "max_abs_err": e[0], "mean_abs_err": e[1]})
+            print(f"[kernel] brick mode (r=2, float32 view) vs brick_eval "
+                  f"C={k.numel()} P={pix.shape[0]} {interp}: "
+                  f"max|d|={e[0]:.3e} mean|d|={e[1]:.3e}", flush=True)
+    tg = mode_tracker(torch, slam, "gather", "nearest")
+    tb = mode_tracker(torch, slam, "brick", "nearest")
+    small = torch.full((6,), SMALL_SEARCH, device=slam.device)
+    view = slam.mv.state.tsdf.reshape(-1)
+    for cls in range(3):
+        level = tr.class_level[cls]
+        table = tr.pst[cls][0]
+        vg = tg.eval_gather(table, level, 0, R, T, small, vn, view, origin)
+        vb = tb.eval_brick(table, level, 0, R, T, small, vn, view, origin)
+        e = compare_costs(torch, vb, vg, f"gather vs brick r=2 C="
+                          f"{vg.numel()}")
+        out.append({"check": "gather vs brick r=2", "C": vg.numel(),
+                    "search": SMALL_SEARCH, "max_abs_err": e[0],
+                    "mean_abs_err": e[1]})
+        print(f"[kernel] gather vs brick mode (r=2) at search size "
+              f"{SMALL_SEARCH} C={vg.numel()}: max|d|={e[0]:.3e} "
+              f"mean|d|={e[1]:.3e}", flush=True)
+    return out
+
+
+def phase_dense_hash(torch):
+    """hash_table_grad on the DenseGrid table at synthetic_bench.yaml's
+    widths (~522.6 M rows x 2 float32, 4.2 GB) against its plain version:
+    DENSE_POINTS seeded points in [0, 1]^3 and a seeded output gradient."""
+    from remixfusion_tpu_torch.models.encodings import get_encoder
+
+    enc, _ = get_encoder("DenseGrid", desired_resolution=DENSE_DESIRED)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((DENSE_POINTS, 3), generator=gen, device="cuda")
+    g = torch.randn((DENSE_POINTS, enc.out_dim), generator=gen,
+                    device="cuda")
+    print(f"[kernel] DenseGrid table: levels {enc.resolutions} (dense: "
+          f"{not any(enc.hashed)}), {enc.table_size} rows, largest row "
+          f"index x 2 = {2 * (enc.table_size - 1)} < 2^31", flush=True)
+    if any(enc.hashed) or 2 * enc.table_size >= 2 ** 31:
+        fail("DenseGrid table is hashed or its rows pass 2^31 / 2")
+    return phase_hash_kernel(torch, [(enc, x, g, enc.table_size)],
+                             table="DenseGrid", n_graph=5)
+
+
+def phase_gather(torch):
+    """[gather]: corridor_v25g.yaml (the corridor with RO.eval_mode gather)
+    over GATHER_FRAMES frames that the corridor phase rendered into the
+    disk cache (checked: none is rendered here), with the launch counts
+    zeroed just before the run and read just after: brick_eval and
+    hash_table_grad never; at least GATHER_MIN_RECENTRES re-centres; full
+    and RO-only ATE below 3 cm; meshes inside the bound."""
+    import copy
+
+    import numpy as np
+
+    from remixfusion_tpu_torch.config import load_config
+    from remixfusion_tpu_torch.datasets import get_dataset
+    from remixfusion_tpu_torch.datasets.base import update_cam
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.ops import hash_enc as he
+    from remixfusion_tpu_torch.slam import RemixFusionTorch
+
+    cfg = load_config(GATHER)
+    cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke", "gather")
+    probe = copy.deepcopy(cfg)
+    update_cam(probe["cam"])
+    ds = get_dataset(probe)
+    missing = [i for i in range(GATHER_FRAMES + 1)
+               if not os.path.exists(ds._disk_cache_path(i))]
+    if missing:
+        fail(f"gather: frames {missing} are not in the corridor's render "
+             f"cache")
+    t0 = time.time()
+    slam = RemixFusionTorch(cfg, device="cuda")
+    rendered = slam.dataset.render_missing(range(GATHER_FRAMES + 1))
+    slam.preload(GATHER_FRAMES + 1)
+    t_setup = time.time() - t0
+    if rendered:
+        fail(f"gather: {rendered} frames rendered, expected none")
+    tr = slam.tracker
+    print(f"[gather] {os.path.relpath(GATHER, ROOT)}: RO.eval_mode "
+          f"{tr.eval_mode}, track view {tr.track_dtype}, volume "
+          f"{slam.mv.dims}; {GATHER_FRAMES + 1} frames read from the "
+          f"corridor's render cache, 0 rendered; set-up {t_setup:.1f} s",
+          flush=True)
+    be.brick_eval_volume.launches = 0
+    he.hash_table_grad.launches = 0
+    t0 = time.time()
+    out = slam.run(max_frames=GATHER_FRAMES)
+    t_run = time.time() - t0
+    launches = {"brick_eval": be.brick_eval_volume.launches,
+                "hash_table_grad": he.hash_table_grad.launches}
+    recentres = len(slam.mv.frame_to_vrange)
+    at = sorted(s for s, _ in slam.mv.frame_to_vrange)[1:] + [
+        slam.mv.start_id]
+    print(f"[gather] frames={out['frames']} tracked={out['tracked_frames']} "
+          f"ms_per_frame={out['ms_per_frame']} ms_per_round="
+          f"{out['ms_per_round']} rounds={out['mapping_rounds']} "
+          f"ate_rmse_cm={out['ate_rmse_cm']} ate_rmse_cm_ro_only="
+          f"{out['ate_rmse_cm_ro_only']} launches={launches} recentres="
+          f"{recentres} at frames {at} wall: run {t_run:.1f} s", flush=True)
+    if tr.eval_mode != "gather" or tr.track_dtype != "float32":
+        fail("gather: the tracker is not in gather mode on a float32 view")
+    if launches != {"brick_eval": 0, "hash_table_grad": 0}:
+        fail(f"gather: launches {launches}, expected none")
+    if recentres < GATHER_MIN_RECENTRES:
+        fail(f"gather: {recentres} re-centres, expected at least "
+             f"{GATHER_MIN_RECENTRES}")
+    for key in ("ate_rmse_cm_ro_only", "ate_rmse_cm"):
+        if not out[key] < CORRIDOR_ATE_BAR_CM:
+            fail(f"gather: {key} {out[key]} cm >= {CORRIDOR_ATE_BAR_CM}")
+    if not np.isfinite(slam.trajectory(out["frames"])).all():
+        fail("gather: non-finite pose")
+    check_corridor_meshes(out, slam, "gather")
+    return out, launches
+
+
 def main():
     import torch
 
@@ -998,6 +1381,9 @@ def main():
     t0 = time.time()
     brick = phase_kernels(torch, slam, out_a["frames"])
     wall["kernel brick_eval"] = time.time() - t0
+    t0 = time.time()
+    brick["mode_checks"] = phase_mode_kernels(torch, slam, out_a["frames"])
+    wall["kernel brick and gather modes"] = time.time() - t0
     del slam
     torch.cuda.empty_cache()
 
@@ -1008,9 +1394,16 @@ def main():
     phase_mesh(slam, out_b, "B")
     wall["mesh B"] = time.time() - t0
     t0 = time.time()
-    hashk = phase_hash_kernel(torch, captured)
+    if len(captured) != 2:
+        fail(f"captured {len(captured)} hash_table_grad calls, expected 2")
+    hash_shapes = phase_hash_kernel(torch, captured)
     wall["kernel hash_table_grad"] = time.time() - t0
     del slam, captured
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    hash_shapes += phase_dense_hash(torch)
+    hashk = hash_kernel_record(hash_shapes)
+    wall["kernel hash_table_grad (DenseGrid)"] = time.time() - t0
     torch.cuda.empty_cache()
 
     real_launches = {}
@@ -1039,6 +1432,38 @@ def main():
     wall["corridor resumed"] = time.time() - t0
     del slam, kept
     torch.cuda.empty_cache()
+    t0 = time.time()
+    _, launches_g = phase_gather(torch)
+    wall["gather"] = time.time() - t0
+    torch.cuda.empty_cache()
+
+    mode_launches = {}
+    for label in ("triplane", "fast", "dense", "brick", "ab_triplane",
+                  "more"):
+        t0 = time.time()
+        slam, out_m, mode_launches[label] = phase_slice(torch, label)
+        if label in ("triplane", "fast"):
+            check_field(slam, label)
+        if label == "triplane":
+            phase_mesh(slam, out_m, label)
+        if label == "dense":
+            layout = (1,) + tuple(slam.mv.dims[1:])
+            if slam.tracker.brick_layout != layout:
+                fail(f"dense: brick_eval reads layout "
+                     f"{slam.tracker.brick_layout}, expected {layout}")
+            for args in tier_cases(torch, slam, out_m["frames"]):
+                brick["shapes"] += check_brick_case(torch, args, "dense")
+            brick["dense_fuse"] = dense_fuse_check(torch, slam,
+                                                   out_m["frames"])
+        if label == "brick":
+            print(f"[slice brick] selections reused on "
+                  f"{out_m['sel_reused']} of {out_m['tracked_frames']} "
+                  f"frames (volume.sel_reuse 2)", flush=True)
+            if not out_m["sel_reused"] > 0:
+                fail("brick: no brick selection was reused")
+        wall[label] = time.time() - t0
+        del slam
+        torch.cuda.empty_cache()
 
     brick["launches"] = launches_a["brick_eval"]
     brick["launches_by_slice"] = {"A": launches_a["brick_eval"],
@@ -1047,12 +1472,17 @@ def main():
                                      for k, v in real_launches.items()},
                                   "corridor": launches_c["brick_eval"],
                                   "corridor resumed":
-                                      launches_r["brick_eval"]}
+                                      launches_r["brick_eval"],
+                                  "gather": launches_g["brick_eval"],
+                                  **{k: v["brick_eval"]
+                                     for k, v in mode_launches.items()}}
     hashk["launches"] = launches_b["hash_table_grad"]
     hashk["launches_by_slice"] = {
         "A": launches_a["hash_table_grad"], "B": launches_b["hash_table_grad"],
         "corridor": launches_c["hash_table_grad"],
-        "corridor resumed": launches_r["hash_table_grad"]}
+        "corridor resumed": launches_r["hash_table_grad"],
+        "gather": launches_g["hash_table_grad"],
+        **{k: v["hash_table_grad"] for k, v in mode_launches.items()}}
     print(json.dumps({"phase_wall_s": wall}), flush=True)
     print(json.dumps({"kernels": [brick, hashk]}), flush=True)
     print(card_line(), flush=True)

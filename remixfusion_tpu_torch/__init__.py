@@ -7,11 +7,15 @@ the numpy-only pieces it needs.
 
 Present slices: the online SLAM loop of RemixFusionTorch —
   - tracking + local TSDF fusion (ROTracker with the hand-written
-    `brick_eval` CUDA kernel, the brick-major moving volume, host brick
-    selection and re-centering);
-  - the mapping rounds: global keyframe grid, residual field (CPGrid, or
-    HashGrid with the hand-written `hash_table_grad` CUDA kernel) and
-    decoders, RBA bundle adjustment, the one-round-late pose write-back;
+    `brick_eval` CUDA kernel, or the plain gather and brick eval modes;
+    the brick-major moving volume with host brick selection, reusable for
+    volume.sel_reuse frames, or the dense volume with frustum-tiled
+    fusion; re-centering);
+  - the mapping rounds: global keyframe grid, residual field (CPGrid,
+    Triplane, HashGrid or DenseGrid — both with the hand-written
+    `hash_table_grad` CUDA kernel — or a parameter-free Frequency,
+    SphericalHarmonics or Identity encoding) and decoders, RBA bundle
+    adjustment, the one-round-late pose write-back;
   - the end of run: the final trajectory and its full and RO-only ATE,
     the checkpoint, mesh.ply (the residual field queried on the dense mesh
     grid on the device, marching tetrahedra in host C++ built with g++

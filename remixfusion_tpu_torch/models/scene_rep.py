@@ -8,7 +8,9 @@ model/scene_rep.py:13-528):
     ops/tsdf.integrate_global, read by trilinear queries; node i sits at
     normalized coordinate i / R);
   - implicit branch: the residual encoding's table (`hash_table`: a tensor
-    for HashGrid, a dict of factor tables for CPGrid) + OneBlob + the
+    for HashGrid and DenseGrid, a dict of tables for CPGrid and Triplane,
+    None for the parameter-free Frequency, SphericalHarmonics and
+    Identity encodings) + OneBlob + the
     residual decoders (ColorSDFNet), whose SDF and color residuals are
     added onto the explicit values;
   - the RBA pose-refinement network.
@@ -67,7 +69,9 @@ class SceneRepresentation(nn.Module):
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         table = self.embed_res_fn.init(generator, device)
-        if isinstance(table, dict):
+        if table is None:
+            self.hash_table = None
+        elif isinstance(table, dict):
             self.hash_table = nn.ParameterDict(
                 {k: nn.Parameter(v) for k, v in table.items()})
         else:
@@ -79,7 +83,10 @@ class SceneRepresentation(nn.Module):
     # --------------------------------------------------- parameter groups
 
     def field_parameters(self):
-        """The residual encoding's table(s)."""
+        """The residual encoding's table(s); none for a parameter-free
+        encoding."""
+        if self.hash_table is None:
+            return []
         if isinstance(self.hash_table, nn.ParameterDict):
             return list(self.hash_table.values())
         return [self.hash_table]

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from remixfusion_tpu_torch.ops.tsdf import bm_vox_flat
+from remixfusion_tpu_torch.ops.tsdf import window_index
 
 BRICK_SIDE = 4
 BRICK_CELLS = BRICK_SIDE ** 3
@@ -147,11 +147,7 @@ def fetch_windows(tsdf_bm, layout, base) -> torch.Tensor:
     [NB, b^3] (layout (b, BY, BZ)) at integer bases [P, 3], cell order
     (dx*4 + dy)*4 + dz, rounded through bfloat16 like the JAX track volume
     and widened back to float32: the plain version's gather."""
-    d = torch.arange(BRICK_SIDE, device=base.device)
-    off = torch.stack(torch.meshgrid(d, d, d, indexing="ij"), -1).reshape(
-        1, BRICK_CELLS, 3)
-    vox = base[:, None, :].to(torch.int64) + off
-    idx = bm_vox_flat(layout, vox[..., 0], vox[..., 1], vox[..., 2])
+    idx = window_index(layout, base, BRICK_SIDE)
     return tsdf_bm.reshape(-1)[idx].to(torch.bfloat16).to(torch.float32)
 
 

@@ -5,6 +5,16 @@ reference's embedded CUDA kernels model/Volume.py:128-583):
   - _project / _fuse_local_update <- `integrate` (Volume.py:196-336)
   - fuse_bricks_bm    <- make_brick_fuser_bm (:1696): fusion of a host-
                          selected brick set on the brick-major state
+  - fuse_dense        <- make_slab_fuser (:290, tiles=None: the full
+                         sweep, in x-slabs of pick_slab_count) and
+                         make_tiled_fuser (:352, the frustum tiles of
+                         frustum_tiles) on a dense [X, Y, Z] volume;
+                         fuse_frame (:97, local mode) is its full sweep
+  - make_volume, reset_volume <- make_volume / `clean_tsdf`
+                         (Volume.py:561-583)
+  - trilinear         <- `tri_intepolate` (Volume.py:337-458)
+  - nearest_tsdf      <- the tracker's per-candidate voxel lookup
+                         (ROtracker.py:244-259)
   - shift_volume_bm   <- swap_rot_trans (Volume.py:128-194), whole bricks
   - shift_volume      <- the same on a dense [X, Y, Z] volume
   - filter_low_weight <- filter_tsdf (Volume.py:462-487)
@@ -18,8 +28,9 @@ reference's embedded CUDA kernels model/Volume.py:128-583):
 State is brick-major: tsdf/weight [NB, b^3], color [NB, b^3, 3], brick
 (bx, by, bz) at row (bx*BY + by)*BZ + bz and voxel (i, j, k) of a brick at
 column (i*b + j)*b + k. A fusion batch moves as one row gather and one row
-scatter. Unlike the JAX functions, which return new arrays, fuse_bricks_bm
-and integrate_global update the state tensors in place (the selected rows
+scatter. The dense volume (volume.brick_fusion: false) is [X, Y, Z]. Unlike
+the JAX functions, which return new arrays, fuse_bricks_bm, fuse_dense and
+integrate_global update the state tensors in place (the selected rows
 only), which saves a full copy of the volume per frame; the shifts return
 new tensors.
 
@@ -157,6 +168,163 @@ def fuse_bricks_bm(state: VolumeState, ids, depth, rgb255, K, c2w, *,
     return state
 
 
+def make_volume(dims, origin, device) -> VolumeState:
+    """An empty dense volume: tsdf 1, weight 0, colour 0, at `origin`."""
+    dims = tuple(int(d) for d in dims)
+    return VolumeState(
+        torch.ones(dims, dtype=torch.float32, device=device),
+        torch.zeros(dims, dtype=torch.float32, device=device),
+        torch.zeros(dims + (3,), dtype=torch.float32, device=device),
+        torch.as_tensor(np.asarray(origin, np.float32), device=device))
+
+
+def reset_volume(vol: VolumeState) -> VolumeState:
+    """tsdf 1, weight 0, colour 0 (reference `clean_tsdf`)."""
+    return VolumeState(torch.ones_like(vol.tsdf),
+                       torch.zeros_like(vol.weight),
+                       torch.zeros_like(vol.color), vol.origin)
+
+
+def pick_slab_count(X: int, yz: int, target_voxels: int = 4_000_000) -> int:
+    """Smallest divisor n of X whose x-slab (X / n * yz voxels) fits the
+    target: the full sweep's working set."""
+    for n in range(1, X + 1):
+        if X % n == 0 and (X // n) * yz <= target_voxels:
+            return n
+    return X
+
+
+def fuse_dense(state: VolumeState, depth, rgb255, K, c2w, *,
+               voxel_size: float, trunc_margin: float, weight_clamp: bool,
+               obs_weight, tiles=None, tile: int | None = None,
+               chunk: int = 1 << 22) -> VolumeState:
+    """Fuse one frame into a dense [X, Y, Z] volume, in place. tiles=None:
+    every voxel, in x-slabs of pick_slab_count (make_slab_fuser's full
+    sweep); else `tiles` int [n, 3] are the voxel offsets (multiples of
+    `tile`, which divides every dim) of the disjoint tiles to update, as
+    frustum_tiles selects them (make_tiled_fuser), moved `chunk` voxels at
+    a time. Voxel (i, j, k) sits at origin + (i, j, k) * voxel_size. depth
+    [H, W] meters, rgb255 [H, W, 3] in 0..255, K [3, 3], c2w [4, 4],
+    obs_weight a float32 scalar tensor: tensors on the volume's device.
+    The per-voxel update is _fuse_local_update, the brick fuser's."""
+    X, Y, Z = state.tsdf.shape
+    dev = state.tsdf.device
+    im_h, im_w = int(depth.shape[0]), int(depth.shape[1])
+    depth_flat = depth.reshape(-1)
+    color_flat = rgb255.reshape(-1, 3)
+    o = state.origin
+    vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
+
+    def update(t, w, c, vx, vy, vz):
+        return _fuse_local_update(
+            t, w, c, _fma(vx.to(torch.float32), vs, o[0]),
+            _fma(vy.to(torch.float32), vs, o[1]),
+            _fma(vz.to(torch.float32), vs, o[2]), depth_flat, color_flat,
+            K, c2w, trunc_margin, obs_weight, im_h, im_w, weight_clamp)
+
+    if tiles is None:
+        sx = X // pick_slab_count(X, Y * Z)
+        vy = torch.arange(Y, device=dev)[None, :, None].expand(sx, Y, Z)
+        vz = torch.arange(Z, device=dev)[None, None, :].expand(sx, Y, Z)
+        for x0 in range(0, X, sx):
+            vx = torch.arange(x0, x0 + sx, device=dev)[:, None, None] \
+                .expand(sx, Y, Z)
+            sl = slice(x0, x0 + sx)
+            t2, w2, c2 = update(state.tsdf[sl], state.weight[sl],
+                                state.color[sl], vx, vy, vz)
+            state.tsdf[sl] = t2
+            state.weight[sl] = w2
+            state.color[sl] = c2
+        return state
+    t = int(tile)
+    loc = torch.arange(t ** 3, device=dev)
+    li, lj, lk = loc // (t * t), (loc // t) % t, loc % t
+    offs = torch.as_tensor(np.asarray(tiles, np.int64).reshape(-1, 3),
+                           device=dev)
+    t_flat = state.tsdf.view(-1)
+    w_flat = state.weight.view(-1)
+    c_flat = state.color.view(-1, 3)
+    per = max(1, chunk // t ** 3)
+    for s in range(0, offs.shape[0], per):
+        oc = offs[s:s + per]
+        vx = (oc[:, 0:1] + li).reshape(-1)
+        vy = (oc[:, 1:2] + lj).reshape(-1)
+        vz = (oc[:, 2:3] + lk).reshape(-1)
+        lin = (vx * Y + vy) * Z + vz
+        t2, w2, c2 = update(t_flat[lin], w_flat[lin], c_flat[lin], vx, vy,
+                            vz)
+        t_flat[lin] = t2
+        w_flat[lin] = w2
+        c_flat[lin] = c2
+    return state
+
+
+def fuse_frame(vol: VolumeState, depth, color, K, c2w, *,
+               voxel_size: float, trunc_margin: float, obs_weight=1.0,
+               weight_clamp: bool = False) -> VolumeState:
+    """Fuse one frame into every voxel of a dense volume (the JAX fuse_frame
+    in local mode: colour taken as given, 0..255), returning a new
+    VolumeState."""
+    out = VolumeState(vol.tsdf.clone(), vol.weight.clone(),
+                      vol.color.clone(), vol.origin)
+    ow = torch.as_tensor(obs_weight, dtype=torch.float32,
+                         device=vol.tsdf.device)
+    return fuse_dense(out, depth, color, K, c2w, voxel_size=voxel_size,
+                      trunc_margin=trunc_margin, weight_clamp=weight_clamp,
+                      obs_weight=ow)
+
+
+def trilinear(vol_tsdf, vol_color, vol_weight, pts, origin, voxel_size):
+    """Trilinear tsdf / colour interpolation of a dense volume at world
+    points [N, 3] (reference Volume.py:337-458): (tsdf [N], colour [N, 3],
+    valid [N]); a point whose lower corner is outside [0, dim - 1) gets
+    tsdf 1 and colour 0 and is invalid, and a valid point needs >= 4 of its
+    8 corners observed (weight > 0)."""
+    dims = vol_tsdf.shape
+    dims_t = torch.tensor(dims, device=pts.device)
+    pos = (pts - origin[None, :]) / voxel_size
+    low = torch.floor(pos).to(torch.int64)
+    inside = ((low >= 0) & (low < dims_t - 1)).all(-1)
+    low_c = torch.minimum(low.clamp(min=0), dims_t - 2)
+    frac = pos - low_c.to(torch.float32)
+    tsdf_flat = vol_tsdf.reshape(-1)
+    color_flat = vol_color.reshape(-1, 3)
+    weight_flat = vol_weight.reshape(-1)
+    sy, sx = dims[2], dims[1] * dims[2]
+    base = low_c[:, 0] * sx + low_c[:, 1] * sy + low_c[:, 2]
+    n = pts.shape[0]
+    t_acc = torch.zeros(n, dtype=torch.float32, device=pts.device)
+    c_acc = torch.zeros((n, 3), dtype=torch.float32, device=pts.device)
+    w_cnt = torch.zeros(n, dtype=torch.float32, device=pts.device)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                idx = base + dx * sx + dy * sy + dz
+                w = ((dx * frac[:, 0] + (1 - dx) * (1 - frac[:, 0]))
+                     * (dy * frac[:, 1] + (1 - dy) * (1 - frac[:, 1]))
+                     * (dz * frac[:, 2] + (1 - dz) * (1 - frac[:, 2])))
+                t_acc = t_acc + w * tsdf_flat[idx]
+                c_acc = c_acc + w[:, None] * color_flat[idx]
+                w_cnt = w_cnt + (weight_flat[idx] > 0)
+    valid = inside & (w_cnt >= 4)
+    return (torch.where(inside, t_acc, 1.0),
+            torch.where(inside[:, None], c_acc, 0.0), valid)
+
+
+def nearest_tsdf(vol_tsdf_flat, pts, origin, voxel_size, dims):
+    """Nearest-voxel tsdf of a dense volume (flattened) at world points
+    [..., 3]: (tsdf [...], valid [...]); a point whose rounded voxel lies
+    outside [1, dim - 1) is invalid (reference ROtracker.py:244-259)."""
+    pos = torch.round((pts - origin) / voxel_size).to(torch.int64)
+    valid = torch.ones(pos.shape[:-1], dtype=torch.bool, device=pts.device)
+    idx = torch.zeros(pos.shape[:-1], dtype=torch.int64, device=pts.device)
+    for a in range(3):
+        v = pos[..., a]
+        valid = valid & (v >= 1) & (v < dims[a] - 1)
+        idx = idx * dims[a] + v.clamp(0, dims[a] - 1)
+    return vol_tsdf_flat[idx], valid
+
+
 def truncated_points_mask(vol: VolumeState, trunc_tsdf: float = 0.5):
     """Mask of near-surface voxels |tsdf| < trunc_tsdf with weight > 0
     (reference `get_truncated_pc`); the compaction runs on the host."""
@@ -203,6 +371,17 @@ def bm_vox_flat(layout, vx, vy, vz):
     bid = ((vx // b) * BY + vy // b) * BZ + vz // b
     within = ((vx % b) * b + vy % b) * b + vz % b
     return bid * (b * b * b) + within
+
+
+def window_index(layout, base, side: int):
+    """Flat indices [P, side^3] (into a reshape(-1) of a volume of layout
+    (b, BY, BZ)) of the side^3 windows at integer bases [P, 3], cell order
+    (dx * side + dy) * side + dz."""
+    d = torch.arange(side, device=base.device)
+    off = torch.stack(torch.meshgrid(d, d, d, indexing="ij"),
+                      -1).reshape(1, side ** 3, 3)
+    vox = base[:, None, :].to(torch.int64) + off
+    return bm_vox_flat(layout, vox[..., 0], vox[..., 1], vox[..., 2])
 
 
 def shift_volume_bm(vol: VolumeState, new_origin: torch.Tensor, voxel_size,
@@ -539,11 +718,13 @@ class BrickSelector:
         return mask
 
     def select(self, origin, c2w, depth, trunc_margin, budget,
-               fs_phase=0, fs_every=4, update_seen=True):
+               fs_phase=0, fs_every=4, fs_span=1, update_seen=True):
         """Returns ([budget, 3] int32 brick coords padded with -1, n_near,
         n_selected, near_flat) — the brick contract of
         select_fusion_bricks plus the flat near-brick index set. Free-space
-        bricks rotate over fs_every phases. update_seen=False defers the
+        bricks rotate over fs_every phases; fs_span > 1 takes fs_span
+        consecutive phases, for a selection that serves fs_span frames
+        (volume.sel_reuse). update_seen=False defers the
         fs_scope='seen' carve-history update: a look-ahead worker thread
         must not mutate `self.seen` (the main thread may shift_seen it
         concurrently on a re-center); the consumer applies mark_seen with
@@ -557,8 +738,8 @@ class BrickSelector:
                 self.mark_seen(near_flat)
         else:
             fs_flat = np.flatnonzero(fr & ~near)
-        if fs_every > 1:
-            fs_flat = fs_flat[(fs_flat - fs_phase) % fs_every == 0]
+        if fs_every > 1 and fs_span < fs_every:
+            fs_flat = fs_flat[(fs_flat - fs_phase) % fs_every < fs_span]
         n_near = len(near_flat)
         if n_near > budget:
             near_flat = near_flat[:budget]

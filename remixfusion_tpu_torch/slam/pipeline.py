@@ -6,7 +6,10 @@ run.py, mp_slam/tracker.py, mp_slam/mapper.py:874-950), on one device:
   - every frame is tracked by ROTracker against the moving local TSDF
     volume and fused into it with the brick fuser; the host re-centers the
     volume and selects the bricks to fuse from poses extrapolated off the
-    harvested frontier (RO poses only: mapping never feeds the RO chain);
+    harvested frontier (RO poses only: mapping never feeds the RO chain),
+    one selection serving volume.sel_reuse frames while the origin holds.
+    With volume.brick_fusion false the volume is dense and a frame fuses
+    the frustum tiles of its extrapolated pose, or every voxel;
   - frame 0 seeds the global keyframe grid and runs mapping.first_iters
     map steps on host-drawn rays (first_frame_mapping);
   - whenever the harvested frontier passes mapping_idx + map_every, a
@@ -89,7 +92,10 @@ _PARAM_PARTS = ("hash_table", "decoder", "rba")
 
 
 def _leaves(tree) -> list:
-    """Leaves of a nested dict in tree_flatten order (keys sorted)."""
+    """Leaves of a nested dict in tree_flatten order (keys sorted; None
+    has none)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     return [tree]
@@ -135,11 +141,10 @@ class RemixFusionTorch:
     def __init__(self, config, device=None):
         self.config = config
         self.device = resolve_device(device)
-        # unported modes raise before the volume and the frames are built
-        check_modes(config["RO"])
+        # invalid tracker settings raise before the volume and the frames
+        # are built
+        check_modes(config)
         vcfg = config["volume"]
-        if int(vcfg.get("sel_reuse", 1)) != 1:
-            raise NotImplementedError("volume.sel_reuse != 1 is not ported")
         if config["mesh"].get("render_img"):
             raise NotImplementedError(
                 "mesh.render_img (render-vs-GT images) is not ported")
@@ -206,7 +211,8 @@ class RemixFusionTorch:
         if self.device.type == "cuda":
             # build + load the kernels now: set-up time, not loop time
             from remixfusion_tpu_torch.ops import build
-            build.load("brick_eval")
+            if self.tracker.eval_mode == "pallas":
+                build.load("brick_eval")
             if isinstance(self.scene.embed_res_fn, HashGridEncoding):
                 build.load("hash_enc")
         # the first frame seeds the whole local volume (reference
@@ -233,6 +239,12 @@ class RemixFusionTorch:
         self._last_fit = 0.0
         # look-ahead brick selection: (frame_id, origin, selection, phase)
         self._lookahead = None
+        # brick selection reuse (volume.sel_reuse frames): (frame_id,
+        # origin, brick rows) of the last selection made, and the count of
+        # frames that fused a reused one
+        self._sel_reuse = max(1, int(vcfg.get("sel_reuse", 1)))
+        self._sel_cache = None
+        self.sel_reused = 0
         # keyframe-only color fusion (volume.color_fuse: keyframes | all)
         self._color_fuse = str(vcfg.get("color_fuse", "keyframes"))
         if self._color_fuse not in ("keyframes", "all"):
@@ -291,7 +303,10 @@ class RemixFusionTorch:
         return cache[1], cache[2]
 
     def _needs_color(self, frame_id: int) -> bool:
-        return self._color_fuse == "all" or frame_id % self._kf_every == 0
+        """The dense volume fuses colour on every frame; the brick fuser
+        on keyframes only unless volume.color_fuse is 'all'."""
+        return (not self.mv.brick or self._color_fuse == "all"
+                or frame_id % self._kf_every == 0)
 
     def _obs_weight(self, res):
         """Frame fusion weight: 1, or with volume.fuse_fit_gate [lo, hi] a
@@ -406,16 +421,11 @@ class RemixFusionTorch:
         with record_function("slice.select"):
             init = self._host_pose_estimate(frame_id)
             mv.check_move(frame_id, init)
-            la, self._lookahead = self._lookahead, None
-            if (la is not None and la[0] == frame_id
-                    and np.array_equal(la[1], mv.vol_bnds[:, 0])):
-                bricks, near_flat = la[2]
-                mv._fs_phase = la[3] + 1
-                mv.apply_seen(near_flat)
+            if mv.brick:
+                ids = self._select_bricks(frame_id, batch, init)
             else:
-                bricks = mv.frame_bricks(init, np.asarray(batch["depth"]),
-                                         self.K)
-            ids = mv.brick_ids(bricks)
+                ids = mv.frame_tiles(init, np.asarray(batch["depth"]),
+                                     self.K)
         with record_function("slice.upload"):
             fc = self._needs_color(frame_id)
             depth_t, rgb255 = self._device_frame(batch, fc)
@@ -432,17 +442,47 @@ class RemixFusionTorch:
         self._pending.append((frame_id, res, init))
 
         # look-ahead selection for the next frame from the harvested
-        # frontier (discarded if the volume re-centers before it is used)
+        # frontier, unless it reuses this one (discarded if the volume
+        # re-centers before it is used)
         nxt = frame_id + 1
-        if nxt < self.dataset.num_frames and len(self._last_harvested) >= 2:
+        sc = self._sel_cache
+        need_sel = (sc is None or nxt - sc[0] >= self._sel_reuse
+                    or not np.array_equal(sc[1], mv.vol_bnds[:, 0]))
+        if (mv.brick and need_sel and nxt < self.dataset.num_frames
+                and len(self._last_harvested) >= 2):
             with record_function("slice.lookahead"):
                 pred = self._host_pose_estimate(nxt)
                 origin = mv.vol_bnds[:, 0].copy()
                 phase = mv._fs_phase
                 sel = mv.frame_bricks_pure(
                     origin, pred, np.asarray(self._get_frame(nxt)["depth"]),
-                    self.K, phase, update_seen=False)
+                    self.K, phase, self._sel_reuse, update_seen=False)
                 self._lookahead = (nxt, origin, sel, phase)
+
+    def _select_bricks(self, frame_id: int, batch, init) -> torch.Tensor:
+        """Brick rows (device int64) that frame_id fuses: the previous
+        selection while it is younger than volume.sel_reuse frames and the
+        origin has not moved; else the look-ahead selection made for this
+        frame at this origin, or a selection made now; a new selection
+        takes sel_reuse free-space phases (JAX track_frame)."""
+        mv = self.mv
+        sc = self._sel_cache
+        if (sc is not None and frame_id - sc[0] < self._sel_reuse
+                and np.array_equal(sc[1], mv.vol_bnds[:, 0])):
+            self.sel_reused += 1
+            return sc[2]
+        la, self._lookahead = self._lookahead, None
+        if (la is not None and la[0] == frame_id
+                and np.array_equal(la[1], mv.vol_bnds[:, 0])):
+            bricks, near_flat = la[2]
+            mv._fs_phase = la[3] + self._sel_reuse
+            mv.apply_seen(near_flat)
+        else:
+            bricks = mv.frame_bricks(init, np.asarray(batch["depth"]),
+                                     self.K, fs_span=self._sel_reuse)
+        ids = mv.brick_ids(bricks)
+        self._sel_cache = (frame_id, mv.vol_bnds[:, 0].copy(), ids)
+        return ids
 
     # ------------------------------------------------------------ mapping
 
@@ -708,6 +748,7 @@ class RemixFusionTorch:
             "timed_rounds": timed_rounds,
             "first_frame_mapping_ms": first_ms,
             "state_save_ms": self.state_save_ms[saves_before:],
+            "sel_reused": self.sel_reused,
         })
 
     def finalize(self, n: int, stats: dict) -> dict:
@@ -849,6 +890,8 @@ class RemixFusionTorch:
         it = iter(data[f"param_{i}"] for i in range(n))
 
         def fill(tree):
+            if tree is None:
+                return None
             if isinstance(tree, dict):
                 return {k: fill(tree[k]) for k in sorted(tree)}
             return next(it)
@@ -967,6 +1010,7 @@ class RemixFusionTorch:
         self._pending = []
         self._pending_ba = None
         self._lookahead = None
+        self._sel_cache = None
         self._map_frame_cache = None
         print(f"Loaded resume state from {path} (continuing after frame "
               f"{self.tracking_idx})")

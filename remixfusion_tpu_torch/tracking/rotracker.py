@@ -1,20 +1,34 @@
 """Randomized pose optimization (gradient-free tracking) in PyTorch.
 
-Counterpart of remixfusion_tpu.tracking.rotracker.ROTracker in its main
-mode, eval_mode 'pallas' (reference model/ROtracker.py:33-971). A frame runs
-`particle_iter_lens` iterations. Each one picks the candidate tier from the
-success count (count % 3 -> 10240/3072/1024 candidates at image strides
-32/16/8, pst.TIFF_INDEX / pst.DEPTH_LEVEL), computes the tier's vertices and
-normals at its pixel subgrid (gathered from per-frame maps) and each
-pixel's window base. With RO.sample_range != 0 the per-frame vertex map
+Counterpart of remixfusion_tpu.tracking.rotracker.ROTracker (reference
+model/ROtracker.py:33-971). A frame runs `particle_iter_lens` iterations.
+Each one picks the candidate tier from the success count (count % 3 ->
+10240/3072/1024 candidates at image strides 32/16/8, pst.TIFF_INDEX /
+pst.DEPTH_LEVEL), computes the tier's vertices and normals at its pixel
+subgrid (gathered from per-frame maps), scores every candidate pose against
+the moving TSDF volume and moves the pose to the weighted mean of the
+improving candidates. With RO.sample_range != 0 the per-frame vertex map
 shifts every pixel along its ray by a random fraction of the truncation
 and expects the TSDF value that shift implies (reference compute_vertex,
 ROtracker.py:272-344); the shift is drawn on the device from a
-torch.Generator the caller owns. Every candidate is scored with the
-`brick_eval` kernel, which reads each pixel's 4^3 TSDF window from the
-brick-major volume itself (rounded through bfloat16 like the JAX track
-volume), and the pose moves to the weighted mean of the improving
-candidates.
+torch.Generator the caller owns.
+
+RO.eval_mode picks how a candidate is scored:
+  - 'pallas' (the main path): the `brick_eval` kernel, which reads each
+    pixel's 4^3 TSDF window from the volume itself, rounded through
+    bfloat16 like the JAX track volume;
+  - 'gather' (the default, the reference's exact lookup): one volume read
+    per (candidate, pixel) at the rounded voxel of the moved vertex, in
+    plain PyTorch (JAX _eval_tier);
+  - 'brick': the same transform, the lookup confined to a per-pixel window
+    of side 2 * RO.brick_radius around the unperturbed voxel, nearest or
+    trilinear, in plain PyTorch (JAX _eval_tier_brick; tiers of >= 2048
+    pixels compute camera coordinates through per-candidate rotation
+    matrices, as JAX does there).
+The plain modes read a track view of the volume in volume.track_dtype
+(float32 for gather, bfloat16 otherwise by default, as the JAX pipeline).
+The volume is brick-major [NB, b^3] or dense [X, Y, Z] (layout (1, Y, Z));
+voxels are addressed with ops.tsdf.bm_vox_flat either way.
 
 The JAX tracker keeps the loop on the device (fori_loop + lax.switch over
 three static-shape tiers). Here the tier's shape (C, P) depends on the
@@ -33,7 +47,13 @@ import torch
 
 from remixfusion_tpu_torch.ops.brick_eval import (BRICK_SIDE,
                                                   brick_eval_volume)
+from remixfusion_tpu_torch.ops.tsdf import bm_vox_flat, window_index
 from remixfusion_tpu_torch.tracking import pst as pst_mod
+
+EVAL_MODES = ("gather", "brick", "pallas")
+# tiers with at least this many pixels take the rotation-matrix branch of
+# brick mode (JAX _eval_tier_brick)
+MATRIX_TIER_PIXELS = 2048
 
 
 class TrackResult(NamedTuple):
@@ -43,17 +63,42 @@ class TrackResult(NamedTuple):
     origin_value: torch.Tensor  # fitness of the final iteration's pose
 
 
-def check_modes(ro: dict):
-    """Raise NotImplementedError for the RO settings the port does not
-    implement: eval_mode other than the fused-kernel 'pallas', and
-    brick_radius != 2."""
+def track_dtype(cfg) -> str:
+    """The dtype of the tracker's view of the volume: volume.track_dtype,
+    by default float32 for eval_mode gather (the exact lookup) and
+    bfloat16 otherwise (the JAX pipeline's default)."""
+    mode = cfg["RO"].get("eval_mode", "gather")
+    return str(cfg["volume"].get(
+        "track_dtype", "float32" if mode == "gather" else "bfloat16"))
+
+
+def check_modes(cfg):
+    """Raise ValueError for RO / volume settings no tracker runs: an
+    unknown eval_mode or tsdf_interp, trilinear with gather (JAX raises
+    alike), brick_radius < 1, a track dtype other than float32 / bfloat16,
+    and pallas with a float32 view (the kernel rounds its windows through
+    bfloat16)."""
+    ro = cfg["RO"]
     mode = ro.get("eval_mode", "gather")
-    if mode != "pallas":
-        raise NotImplementedError(
-            f"RO.eval_mode {mode!r} is not ported; the PyTorch tracker "
-            f"implements the fused-kernel mode 'pallas'")
-    if int(ro.get("brick_radius", 2)) != 2:
-        raise NotImplementedError("RO.brick_radius must be 2 (4^3 windows)")
+    if mode not in EVAL_MODES:
+        raise ValueError(f"unknown RO.eval_mode {mode!r}")
+    interp = str(ro.get("tsdf_interp", "nearest"))
+    if interp not in ("nearest", "trilinear"):
+        raise ValueError(f"unknown RO.tsdf_interp {interp!r}")
+    if interp == "trilinear" and mode not in ("brick", "pallas"):
+        raise ValueError(
+            f"RO.tsdf_interp=trilinear requires eval_mode brick|pallas, "
+            f"not {mode!r}")
+    if int(ro.get("brick_radius", 2)) < 1:
+        raise ValueError("RO.brick_radius must be >= 1")
+    dt = track_dtype(cfg)
+    if dt not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown volume.track_dtype {dt!r}")
+    if mode == "pallas" and dt != "bfloat16":
+        raise ValueError(
+            "RO.eval_mode pallas reads a bfloat16 track view (the "
+            "brick_eval kernel rounds its windows through bfloat16); "
+            "volume.track_dtype float32 needs eval_mode gather or brick")
 
 
 class ROTracker:
@@ -66,14 +111,16 @@ class ROTracker:
                                  device=dev)
         self.vol_dims = tuple(int(d) for d in vol_dims)
         self.voxel_size = float(voxel_size)
-        self.brick_layout = tuple(brick_layout)
-        if self.brick_layout[0] < BRICK_SIDE:
-            raise ValueError("brick-major volume needs bricks >= 4 voxels")
+        # (b, BY, BZ) of the volume: brick-major, or (1, Y, Z) when dense
+        self.brick_layout = tuple(int(v) for v in brick_layout)
+        if 1 < self.brick_layout[0] < BRICK_SIDE:
+            raise ValueError("a brick-major volume needs bricks >= 4 voxels")
 
-        check_modes(ro)
+        check_modes(cfg)
+        self.eval_mode = ro.get("eval_mode", "gather")
         self.tsdf_interp = str(ro.get("tsdf_interp", "nearest"))
-        if self.tsdf_interp not in ("nearest", "trilinear"):
-            raise ValueError(f"unknown RO.tsdf_interp {self.tsdf_interp!r}")
+        self.brick_r = int(ro.get("brick_radius", 2))
+        self.track_dtype = track_dtype(cfg)
         self.sample_range = float(ro["sample_range"])
         self.truncation = float(cfg["volume"]["trunc"])
 
@@ -121,8 +168,9 @@ class ROTracker:
             torch.tensor([float(self.W), float(self.H), inv_vox],
                          dtype=torch.float32, device=dev),
             torch.zeros(7, dtype=torch.float32, device=dev)])
-        self._dims_hi = torch.tensor(self.vol_dims, dtype=torch.int32,
-                                     device=dev) - 1 - BRICK_SIDE
+        self._dims_t = torch.tensor(self.vol_dims, dtype=torch.int32,
+                                    device=dev)
+        self._dims_hi = self._dims_t - 1 - BRICK_SIDE
         self._subgrids = {}
 
     # -------------------------------------------------- frame preparation
@@ -306,6 +354,171 @@ class ROTracker:
         params = torch.cat([R.reshape(-1), T, ss, self._param_tail])
         return params, pix, base
 
+    # ------------------------------------------- plain candidate scoring
+
+    def _candidates(self, table, ss):
+        """Candidate translations t [C, 3], quaternion vectors qv [C, 3]
+        and scalars q0 [C] of a table slab [C, 6] at search size ss."""
+        t = table[:, :3] * ss[None, :3]
+        qv = table[:, 3:] * ss[None, 3:]
+        q0 = torch.sqrt(torch.clamp(1.0 - (qv * qv).sum(-1), min=1e-12))
+        return t, qv, q0
+
+    @staticmethod
+    def _quat_world(g, t, qv, q0, T):
+        """World positions ([C, P] x3) of the pixels' rotated vertices g
+        [P, 3] moved by every candidate, quaternion algebra
+        x' = g + 2 q0 (qv x g) + 2 qv x (qv x g) + t + T."""
+        gx, gy, gz = g[None, :, 0], g[None, :, 1], g[None, :, 2]
+        qx, qy, qz = qv[:, 0, None], qv[:, 1, None], qv[:, 2, None]
+        q0c = q0[:, None]
+        c1x = qy * gz - qz * gy
+        c1y = qz * gx - qx * gz
+        c1z = qx * gy - qy * gx
+        c2x = qy * c1z - qz * c1y
+        c2y = qz * c1x - qx * c1z
+        c2z = qx * c1y - qy * c1x
+        xw = gx + 2.0 * q0c * c1x + 2.0 * c2x + t[:, 0, None] + T[0]
+        yw = gy + 2.0 * q0c * c1y + 2.0 * c2y + t[:, 1, None] + T[1]
+        zw = gz + 2.0 * q0c * c1z + 2.0 * c2z + t[:, 2, None] + T[2]
+        return xw, yw, zw
+
+    @staticmethod
+    def _to_cam(xw, yw, zw, R, T):
+        """Camera coordinates R^T (x' - T) of world positions."""
+        rx, ry, rz = xw - T[0], yw - T[1], zw - T[2]
+        return (R[0, 0] * rx + R[1, 0] * ry + R[2, 0] * rz,
+                R[0, 1] * rx + R[1, 1] * ry + R[2, 1] * rz,
+                R[0, 2] * rx + R[1, 2] * ry + R[2, 2] * rz)
+
+    @staticmethod
+    def _matrix_cam(g, t, qv, q0, R):
+        """Camera coordinates ([C, P] x3) through per-candidate rotation
+        matrices: cam = (R^T Rc) g + R^T t_c (JAX _mxu_cam, a float32
+        matmul at HIGHEST precision; no TF32 here either)."""
+        C = t.shape[0]
+        qx, qy, qz = qv[:, 0], qv[:, 1], qv[:, 2]
+        Rc = torch.stack([
+            1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * q0),
+            2 * (qx * qz + qy * q0),
+            2 * (qx * qy + qz * q0), 1 - 2 * (qx * qx + qz * qz),
+            2 * (qy * qz - qx * q0),
+            2 * (qx * qz - qy * q0), 2 * (qy * qz + qx * q0),
+            1 - 2 * (qx * qx + qy * qy)], -1).reshape(C, 3, 3)
+        M = torch.einsum("ji,cjk->cik", R, Rc)
+        b = t @ R
+        cam = (g @ M.reshape(C * 3, 3).T).reshape(-1, C, 3).permute(
+            1, 0, 2) + b[:, None, :]
+        return cam[..., 0], cam[..., 1], cam[..., 2]
+
+    def _in_image(self, cam_x, cam_y, cam_z):
+        K = self.K
+        safe_z = torch.where(cam_z != 0, cam_z, torch.full_like(cam_z, 1e-9))
+        px = torch.floor(cam_x * K[0, 0] / safe_z + K[0, 2] + 0.5)
+        py = torch.floor(cam_y * K[1, 1] / safe_z + K[1, 2] + 0.5)
+        return ((px >= 0) & (py >= 0) & (px < self.W) & (py < self.H)
+                & (cam_z >= 0))
+
+    @staticmethod
+    def _guarded(vals, gt, valid):
+        """Mean |tsdf - expected| over the valid pixels of each candidate,
+        1e6 for a candidate with fewer than half the identity candidate's
+        valid pixels (JAX _guarded_cost)."""
+        sv = torch.where(valid, torch.abs(vals - gt[None, :]),
+                         torch.zeros_like(vals)).sum(1)
+        cnt = valid.sum(1).to(torch.float32)
+        cost = sv / (cnt + 1e-6)
+        return torch.where(cnt >= 0.5 * cnt[0], cost,
+                           torch.full_like(cost, 1e6))
+
+    def eval_gather(self, table, level, level_index, R, T, ss, vn, view,
+                    origin):
+        """Cost [C] of one tier, eval_mode gather: the voxel nearest each
+        moved vertex, read straight from the track view `view` (the volume
+        reshaped to [-1] in the track dtype); a voxel outside [1, dim - 1)
+        drops the pair (JAX _eval_tier)."""
+        v, _, pix_ok = self._tier_pixels(vn, level, level_index)
+        g = (v[:, None, :3] * R[None, :, :]).sum(-1)
+        t, qv, q0 = self._candidates(table, ss)
+        xw, yw, zw = self._quat_world(g, t, qv, q0, T)
+        in_img = self._in_image(*self._to_cam(xw, yw, zw, R, T))
+        inv_vox = self._inv_vox
+        dims = self.vol_dims
+        vox, in_vol = [], None
+        for a, w in enumerate((xw, yw, zw)):
+            i = torch.round((w - origin[a]) * inv_vox).to(torch.int64)
+            ok = (i >= 1) & (i < dims[a] - 1)
+            in_vol = ok if in_vol is None else in_vol & ok
+            vox.append(i.clamp(0, dims[a] - 1))
+        vals = view[bm_vox_flat(self.brick_layout, *vox)].to(torch.float32)
+        return self._guarded(vals, v[:, 3], pix_ok[None, :] & in_img
+                             & in_vol)
+
+    def eval_brick(self, table, level, level_index, R, T, ss, vn, view,
+                   origin):
+        """Cost [C] of one tier, eval_mode brick: the lookup confined to
+        each pixel's window of side 2r (r = RO.brick_radius) around its
+        unperturbed voxel; nearest, or trilinear as the hat-weighted sum of
+        the window, whose non-zero terms are the 8 corners around the
+        voxel coordinate, valid when 0 <= f <= side - 1 on every axis
+        (JAX _eval_tier_brick)."""
+        r = self.brick_r
+        side = 2 * r
+        v, _, pix_ok = self._tier_pixels(vn, level, level_index)
+        g = (v[:, None, :3] * R[None, :, :]).sum(-1)
+        inv_vox = self._inv_vox
+        v0 = torch.round((g + T[None, :] - origin[None, :])
+                         * inv_vox).to(torch.int32)
+        base = torch.minimum(torch.clamp(v0 - r, min=1),
+                             self._dims_t - 1 - side)
+        win = view[window_index(self.brick_layout, base, side)]
+        t, qv, q0 = self._candidates(table, ss)
+        sr, sc = self.tier_strides[level]
+        if (self.H // sr) * (self.W // sc) >= MATRIX_TIER_PIXELS:
+            cam_x, cam_y, cam_z = self._matrix_cam(g, t, qv, q0, R)
+            xw = R[0, 0] * cam_x + R[0, 1] * cam_y + R[0, 2] * cam_z + T[0]
+            yw = R[1, 0] * cam_x + R[1, 1] * cam_y + R[1, 2] * cam_z + T[1]
+            zw = R[2, 0] * cam_x + R[2, 1] * cam_y + R[2, 2] * cam_z + T[2]
+        else:
+            xw, yw, zw = self._quat_world(g, t, qv, q0, T)
+            cam_x, cam_y, cam_z = self._to_cam(xw, yw, zw, R, T)
+        in_img = self._in_image(cam_x, cam_y, cam_z)
+        rows = torch.arange(win.shape[0], device=win.device)[None, :]
+        bf = base.to(torch.float32)
+        if self.tsdf_interp == "trilinear":
+            f = [(w - origin[a]) * inv_vox - bf[None, :, a]
+                 for a, w in enumerate((xw, yw, zw))]
+            in_win = None
+            lo, wts = [], []
+            for fa in f:
+                ok = (fa >= 0) & (fa <= side - 1)
+                in_win = ok if in_win is None else in_win & ok
+                i0 = torch.clamp(torch.floor(fa), 0.0, side - 2.0)
+                lo.append(i0.to(torch.int64))
+                wts.append((torch.clamp(1.0 - torch.abs(fa - i0), min=0.0),
+                            torch.clamp(1.0 - torch.abs(fa - (i0 + 1.0)),
+                                        min=0.0)))
+            vals = torch.zeros_like(xw)
+            for dx in (0, 1):
+                for dy in (0, 1):
+                    for dz in (0, 1):
+                        cell = (((lo[0] + dx) * side + lo[1] + dy) * side
+                                + lo[2] + dz)
+                        w = wts[0][dx] * wts[1][dy] * wts[2][dz]
+                        vals = vals + w * win[rows, cell].to(torch.float32)
+        else:
+            o, in_win = [], None
+            for a, w in enumerate((xw, yw, zw)):
+                i = (torch.round((w - origin[a]) * inv_vox).to(torch.int32)
+                     - base[None, :, a])
+                ok = (i >= 0) & (i < side)
+                in_win = ok if in_win is None else in_win & ok
+                o.append(i.clamp(0, side - 1).to(torch.int64))
+            cell = (o[0] * side + o[1]) * side + o[2]
+            vals = win[rows, cell].to(torch.float32)
+        return self._guarded(vals, v[:, 3], pix_ok[None, :] & in_img
+                             & in_win)
+
     # ------------------------------------------------------ transform step
 
     def _cal_transform(self, value, table, ss):
@@ -354,12 +567,13 @@ class ROTracker:
 
     # -------------------------------------------------------------- track
 
-    def track(self, tsdf_bm, origin, c2w_init, depth, ss_init=None,
+    def track(self, tsdf, origin, c2w_init, depth, ss_init=None,
               sample=None, generator=None):
-        """Optimize one frame's pose. tsdf_bm [NB, b^3] f32, origin [3],
-        c2w_init [4, 4], depth [H, W] — device tensors; sample / generator
-        as vertex_normal_maps takes them (sample_range != 0 only). One
-        boolean is read back per iteration (the tier choice needs it on the
+        """Optimize one frame's pose. tsdf: the volume's float32 tsdf
+        (brick-major [NB, b^3] or dense [X, Y, Z]), origin [3], c2w_init
+        [4, 4], depth [H, W] — device tensors; sample / generator as
+        vertex_normal_maps takes them (sample_range != 0 only). One boolean
+        is read back per iteration (the tier choice needs it on the
         host)."""
         R = c2w_init[:3, :3].clone()
         T = c2w_init[:3, 3].clone()
@@ -370,15 +584,28 @@ class ROTracker:
         count_cap = min(self.particle_iter_lens - 1, 19)
         origin_val = None
         vn = self.vertex_normal_maps(depth, sample, generator)
+        if self.eval_mode == "pallas":
+            vol = tsdf.reshape(-1, self.brick_layout[0] ** 3)
+        else:
+            vol = tsdf.reshape(-1)
+            if self.track_dtype == "bfloat16":
+                vol = vol.to(torch.bfloat16)
+            score = (self.eval_gather if self.eval_mode == "gather"
+                     else self.eval_brick)
         for i in range(self.particle_iter_lens):
             cls = count % 3
             slab = self.slab_table[count]
-            params, pix, base = self.tier_inputs(
-                self.class_level[cls], level_index, R, T, ss, vn, origin)
-            value = brick_eval_volume(params, pix, base, tsdf_bm,
-                                      self.brick_layout,
-                                      self.pst_t[cls][slab],
-                                      interp=self.tsdf_interp)
+            level = self.class_level[cls]
+            if self.eval_mode == "pallas":
+                params, pix, base = self.tier_inputs(
+                    level, level_index, R, T, ss, vn, origin)
+                value = brick_eval_volume(params, pix, base, vol,
+                                          self.brick_layout,
+                                          self.pst_t[cls][slab],
+                                          interp=self.tsdf_interp)
+            else:
+                value = score(self.pst[cls][slab], level, level_index, R, T,
+                              ss, vn, vol, origin)
             success_t, min_tsdf, mean_t, mean_q = self._cal_transform(
                 value, self.pst[cls][slab], ss)
             origin_val = value[0]
@@ -415,9 +642,9 @@ class ROTracker:
     def do_tracking(self, mv_state, c2w_init, depth, search_size=None,
                     sample=None, generator=None):
         """Optimize the pose of one frame against the moving volume
-        (mv_state: ops.tsdf.VolumeState, brick-major; c2w_init [4, 4] and
-        depth [H, W] as arrays or tensors; sample [H, W] as an array or
-        tensor)."""
+        (mv_state: ops.tsdf.VolumeState, brick-major or dense; c2w_init
+        [4, 4] and depth [H, W] as arrays or tensors; sample [H, W] as an
+        array or tensor)."""
         dev = self.device
         c2w = torch.as_tensor(np.asarray(c2w_init, np.float32)
                               if not torch.is_tensor(c2w_init)

@@ -1,18 +1,27 @@
-"""Moving local TSDF volume: brick-major device state + host re-center policy.
+"""Moving local TSDF volume: device state + host re-center policy.
 
 Counterpart of remixfusion_tpu.tracking.volume.MovingVolume (reference
 model/Volume.py:19-619). The volume's shape is fixed from the config
-(extents 2*{x,y,z}_len at volume.voxel_size, padded to whole bricks);
-re-centering moves the integer-rounded origin and permutes whole bricks
-(ops.tsdf.shift_volume_bm). The re-center decisions ("center": per-axis
+(extents 2*{x,y,z}_len at volume.voxel_size); re-centering moves the
+integer-rounded origin. The re-center decisions ("center": per-axis
 translation thresholds; "more": dominant-view-direction boxes,
-Volume.py:930-1082) run on the host between frames. Fusion always goes
-through the brick fuser on host-selected bricks (no bucket padding: the
-selected rows are fused as they are); the first frame seeds the volume by
-fusing every brick. Each re-center records the bounds that held over the
-frames since the previous one (frame_to_vrange, Volume.py:1084-1105), and
-the whole volume state goes in and out of a resume checkpoint as dense
-[X, Y, Z] arrays (state_arrays / load_state_arrays).
+Volume.py:930-1082) run on the host between frames.
+
+With volume.brick_fusion (the default) the dims are padded to whole bricks
+and the state is brick-major: re-centering permutes whole bricks
+(ops.tsdf.shift_volume_bm), fusion goes through the brick fuser on
+host-selected bricks (no bucket padding: the selected rows are fused as
+they are), and the first frame seeds the volume by fusing every brick.
+With brick_fusion false the state is a dense [X, Y, Z] volume (dims not
+padded; layout (1, Y, Z) for the readers' index arithmetic): a frame fuses
+the frustum tiles of frustum_tiles when a tile edge from TILE_EDGES divides
+every dim and the tiles fit volume.tile_budget_frac of them, else every
+voxel (ops.tsdf.fuse_dense); re-centering is ops.tsdf.shift_volume.
+
+Each re-center records the bounds that held over the frames since the
+previous one (frame_to_vrange, Volume.py:1084-1105), and the whole volume
+state goes in and out of a resume checkpoint as dense [X, Y, Z] arrays
+(state_arrays / load_state_arrays).
 """
 
 from __future__ import annotations
@@ -28,13 +37,14 @@ from remixfusion_tpu_torch.ops.marching_cubes import marching_cubes, \
     vertex_normals
 
 
+# tile edges of the dense volume's frustum-tiled fusion, coarsest first
+TILE_EDGES = (64, 60, 50, 48, 40, 32, 25)
+
+
 class MovingVolume:
     def __init__(self, cfg, init_pose: np.ndarray, device):
         self.device = torch.device(device)
         v = cfg["volume"]
-        if not v.get("brick_fusion", True):
-            raise NotImplementedError(
-                "only brick fusion (volume.brick_fusion: true) is ported")
         self.voxel_size = float(v["voxel_size"])
         self.trunc_margin = float(v["trunc"])
         self.weight_clamp = float(v["weight_clamp"]) == 1.0
@@ -63,21 +73,35 @@ class MovingVolume:
             angles, _ = self._axis_angles(init_pose)
             self.first_axis = int(np.argsort([a for a, _ in angles])[0])
         self.vol_bnds = np.asarray(self.vol_bnds, np.float64)
-        self.brick = int(v.get("brick_size", 10))
-        self.dims = tuple(
-            int(math.ceil(math.ceil((self.vol_bnds[i, 1]
-                                     - self.vol_bnds[i, 0])
-                                    / self.voxel_size) / self.brick))
-            * self.brick for i in range(3))
+        # brick edge of the brick-major state, 0 for the dense volume
+        self.brick = (int(v.get("brick_size", 10))
+                      if v.get("brick_fusion", True) else 0)
+        self.dims = self._dims_of(self.vol_bnds)
         self.vol_bnds[:, 1] = self.vol_bnds[:, 0] + \
             np.asarray(self.dims) * self.voxel_size
         # bounds history: (first frame, last frame) -> the bounds that held
         # over those frames; start_id is the first frame of the current ones
         self.start_id = 0
         self.frame_to_vrange: dict[tuple[int, int], np.ndarray] = {}
+        dev = self.device
+        # free-space carve scope: 'frustum' (every in-frustum brick, rotated)
+        # or 'seen' (only bricks that ever held a near-surface band)
+        self.fs_scope = str(v.get("fs_scope", "frustum"))
+        self._fs_phase = 0
+        if not self.brick:
+            self.state = tsdf_ops.make_volume(self.dims, self.vol_bnds[:, 0],
+                                              dev)
+            self.tile = 0
+            if v.get("tiled_fusion", True):
+                self.tile = next((c for c in TILE_EDGES
+                                  if all(d % c == 0 for d in self.dims)), 0)
+            if self.tile:
+                n_tiles = int(np.prod([d // self.tile for d in self.dims]))
+                frac = float(v.get("tile_budget_frac", 0.45))
+                self.tile_budget = max(1, int(np.ceil(n_tiles * frac)))
+            return
         nb = int(np.prod([d // self.brick for d in self.dims]))
         b3 = self.brick ** 3
-        dev = self.device
         self.state = tsdf_ops.VolumeState(
             tsdf=torch.ones((nb, b3), dtype=torch.float32, device=dev),
             weight=torch.zeros((nb, b3), dtype=torch.float32, device=dev),
@@ -90,10 +114,15 @@ class MovingVolume:
                                 max(256, int(math.ceil(nb * frac / 256.0))
                                     * 256))
         self.fs_every = int(v.get("freespace_every", 4))
-        # free-space carve scope: 'frustum' (every in-frustum brick, rotated)
-        # or 'seen' (only bricks that ever held a near-surface band)
-        self.fs_scope = str(v.get("fs_scope", "frustum"))
-        self._fs_phase = 0
+
+    def _dims_of(self, bnds) -> tuple:
+        """Voxel dims of bounds `bnds`, padded to whole bricks when the
+        state is brick-major."""
+        b = self.brick or 1
+        return tuple(
+            int(math.ceil(math.ceil((bnds[i, 1] - bnds[i, 0])
+                                    / self.voxel_size) / b)) * b
+            for i in range(3))
 
     # ------------------------------------------------------------- bounds
 
@@ -200,11 +229,7 @@ class MovingVolume:
             if first != self.first_axis and angles[first][0] \
                     < self.more_angel_t:
                 new_b = np.asarray(self._more_bounds(c2w), np.float64)
-                raw = tuple(
-                    int(math.ceil(math.ceil((new_b[i, 1] - new_b[i, 0])
-                                            / self.voxel_size) / self.brick))
-                    * self.brick for i in range(3))
-                if raw != self.dims:
+                if self._dims_of(new_b) != self.dims:
                     raise ValueError(
                         "'more' re-center changed the volume shape; set "
                         "first_len == second_len for fixed-shape volumes")
@@ -239,7 +264,10 @@ class MovingVolume:
             self._brick_sel.shift_seen(off_vox)
         new_origin = torch.tensor(new_bnds[:, 0], dtype=torch.float32,
                                   device=self.device)
-        if np.all(off_vox % self.brick == 0):
+        if not self.brick:
+            self.state = tsdf_ops.shift_volume(self.state, new_origin,
+                                               self.voxel_size)
+        elif np.all(off_vox % self.brick == 0):
             # whole-brick shift straight on the brick-major state
             self.state = tsdf_ops.shift_volume_bm(
                 self.state, new_origin, self.voxel_size, self.brick_layout(),
@@ -251,7 +279,10 @@ class MovingVolume:
         self.vol_bnds = new_bnds
 
     def dense_state(self) -> tsdf_ops.VolumeState:
-        """The volume as dense [X, Y, Z] tensors (cold paths and tests)."""
+        """The volume as dense [X, Y, Z] tensors (cold paths and tests; the
+        state itself when it is dense)."""
+        if not self.brick:
+            return self.state
         b, dims = self.brick, self.dims
         return tsdf_ops.VolumeState(
             tsdf=tsdf_ops.bm_to_dense(self.state.tsdf, dims, b),
@@ -260,6 +291,11 @@ class MovingVolume:
             origin=self.state.origin)
 
     def set_dense_state(self, vs: tsdf_ops.VolumeState):
+        if not self.brick:
+            self.state = tsdf_ops.VolumeState(
+                vs.tsdf.contiguous(), vs.weight.contiguous(),
+                vs.color.contiguous(), vs.origin)
+            return
         b = self.brick
         self.state = tsdf_ops.VolumeState(
             tsdf=tsdf_ops.dense_to_bm(vs.tsdf, b).contiguous(),
@@ -323,7 +359,7 @@ class MovingVolume:
         """Rebuild the fs_scope 'seen' carve history from the volume
         (bricks whose min tsdf < 1). Before the selector exists (a fresh
         process) the reseed is held and applied when it is built."""
-        if self.fs_scope != "seen":
+        if not (self.brick and self.fs_scope == "seen"):
             return
         tmin = self.state.tsdf.min(dim=1).values.cpu().numpy()
         if hasattr(self, "_brick_sel"):
@@ -353,9 +389,10 @@ class MovingVolume:
             trunc_tsdf)
 
     def brick_layout(self):
-        """(b, BY, BZ) index spec for brick-major readers."""
-        return (self.brick, self.dims[1] // self.brick,
-                self.dims[2] // self.brick)
+        """(b, BY, BZ) index spec of the state for ops.tsdf.bm_vox_flat:
+        (1, Y, Z) for the dense volume, whose flat index it then is."""
+        b = self.brick or 1
+        return (b, self.dims[1] // b, self.dims[2] // b)
 
     # ---------------------------------------------------------- selection
 
@@ -376,15 +413,17 @@ class MovingVolume:
         return self._brick_sel
 
     def frame_bricks_pure(self, origin, c2w_np, depth_np, K, fs_phase,
-                          update_seen: bool = True):
-        """Brick selection against an explicit origin/phase snapshot.
-        Returns (brick coords np int32 [n, 3], near_flat). update_seen=False
-        leaves the carve history untouched; the caller commits near_flat
-        with apply_seen once the origin snapshot is known to hold."""
+                          fs_span: int = 1, update_seen: bool = True):
+        """Brick selection against an explicit origin/phase snapshot;
+        fs_span consecutive free-space phases (a selection reused for
+        fs_span frames). Returns (brick coords np int32 [n, 3], near_flat).
+        update_seen=False leaves the carve history untouched; the caller
+        commits near_flat with apply_seen once the origin snapshot is known
+        to hold."""
         sel = self._ensure_brick_sel(depth_np.shape, K)
         bricks, _, n_sel, near_flat = sel.select(
             origin, c2w_np, depth_np, self.trunc_margin, self.brick_budget,
-            fs_phase=fs_phase, fs_every=self.fs_every,
+            fs_phase=fs_phase, fs_every=self.fs_every, fs_span=fs_span,
             update_seen=update_seen)
         return bricks[:n_sel], near_flat
 
@@ -393,13 +432,30 @@ class MovingVolume:
         if self.fs_scope == "seen" and hasattr(self, "_brick_sel"):
             self._brick_sel.mark_seen(near_flat)
 
-    def frame_bricks(self, c2w_np, depth_np, K) -> np.ndarray:
-        """Selection for one frame at the current origin and free-space
-        phase; advances the phase."""
+    def frame_bricks(self, c2w_np, depth_np, K, fs_span: int = 1):
+        """Selection for one frame (or fs_span frames) at the current origin
+        and free-space phase; advances the phase by fs_span."""
         bricks, _ = self.frame_bricks_pure(
-            self.vol_bnds[:, 0], c2w_np, depth_np, K, self._fs_phase)
-        self._fs_phase += 1
+            self.vol_bnds[:, 0], c2w_np, depth_np, K, self._fs_phase,
+            fs_span)
+        self._fs_phase += fs_span
         return bricks
+
+    def frame_tiles(self, c2w_np, depth_np, K):
+        """Dense volume: voxel offsets [n, 3] of the frustum tiles to fuse
+        for one frame (frustum_tiles with the far bound max(depth) + trunc
+        + 0.1 m and 16 px of image padding, the JAX pipeline's
+        _frame_tiles), or None for the full sweep (no tile edge divides
+        the dims, or more tiles than tile_budget)."""
+        if not self.tile:
+            return None
+        H, W = depth_np.shape
+        offs = tsdf_ops.frustum_tiles(
+            self.dims, self.tile, self.vol_bnds[:, 0], self.voxel_size,
+            np.asarray(K), c2w_np, H, W,
+            max_depth=float(np.max(depth_np)) + self.trunc_margin + 0.1,
+            pad_px=16)
+        return offs if len(offs) <= self.tile_budget else None
 
     # ---------------------------------------------------------- integration
 
@@ -412,7 +468,16 @@ class MovingVolume:
 
     def fuse(self, ids, depth, rgb255, K, c2w, obs_weight):
         """Fuse one frame (device tensors; rgb255 in 0..255 or None for a
-        depth-only update) into the bricks at rows `ids`, in place."""
+        depth-only update) into the bricks at rows `ids`, in place; on the
+        dense volume `ids` are the tile offsets of frame_tiles (None: every
+        voxel) and the colour is always fused."""
+        if not self.brick:
+            tsdf_ops.fuse_dense(
+                self.state, depth, rgb255, K, c2w,
+                voxel_size=self.voxel_size, trunc_margin=self.trunc_margin,
+                weight_clamp=self.weight_clamp, obs_weight=obs_weight,
+                tiles=ids, tile=self.tile)
+            return
         tsdf_ops.fuse_bricks_bm(
             self.state, ids, depth, rgb255, K, c2w,
             voxel_size=self.voxel_size, trunc_margin=self.trunc_margin,
@@ -420,13 +485,13 @@ class MovingVolume:
             obs_weight=obs_weight)
 
     def integrate_seed(self, rgb01, depth, K, c2w, chunk: int = 2048):
-        """First-frame seed: every brick fused (the JAX package's slab-scan
-        full sweep computes the same per-voxel update), rgb01 in [0, 1]
+        """First-frame seed: every brick (every voxel of the dense volume)
+        fused, as the JAX package's slab-scan full sweep, rgb01 in [0, 1]
         scaled to floor(255 x). Host numpy or device inputs."""
         dev = self.device
         depth_t = torch.as_tensor(np.asarray(depth), dtype=torch.float32,
                                   device=dev)
-        if self.fs_scope == "seen":
+        if self.brick and self.fs_scope == "seen":
             # the seed's near band joins the carve history so its surface
             # stays erasable by later free-space selections
             sel = self._ensure_brick_sel(tuple(depth_t.shape), np.asarray(K))
@@ -439,6 +504,9 @@ class MovingVolume:
         c2w_t = torch.as_tensor(np.asarray(c2w), dtype=torch.float32,
                                 device=dev)
         one = torch.ones((), dtype=torch.float32, device=dev)
+        if not self.brick:
+            self.fuse(None, depth_t, rgb255, K_t, c2w_t, one)
+            return
         nb = self.state.tsdf.shape[0]
         for s in range(0, nb, chunk):
             ids = torch.arange(s, min(s + chunk, nb), device=dev)

@@ -2,8 +2,9 @@
 
 The JAX package's state goes across as numpy arrays:
   - the brick-major local volume (VolumeState: tsdf, weight, color, origin);
-  - the scene model: SceneParams (hash_table — one [T, F] table, or the
-    CPGrid dict of factor tables —, decoder {sdf_net, color_net: {w<i>}},
+  - the scene model: SceneParams (hash_table — one [T, F] table, the
+    CPGrid or Triplane dict of tables, or None for a parameter-free
+    encoding —, decoder {sdf_net, color_net: {w<i>}},
     rba {w<i>, b<i>}) and SceneBuffers (gbv, gbw, rba: init_c2w, init_r,
     init_t). JAX stores a layer's weight [in, out] (h @ w), nn.Linear
     [out, in], so weights are transposed on the way.
@@ -74,9 +75,12 @@ def load_scene_numpy(scene: SceneRepresentation, params, buffers):
     """Copy JAX SceneParams / SceneBuffers (numpy arrays, as NamedTuples
     or dicts) into a port scene of the same configuration."""
     table = _get(params, "hash_table")
-    if isinstance(scene.hash_table, torch.nn.ParameterDict):
+    if scene.hash_table is None or table is None:
+        if scene.hash_table is not None or table is not None:
+            raise ValueError("one side's encoding has no table")
+    elif isinstance(scene.hash_table, torch.nn.ParameterDict):
         if set(table) != set(scene.hash_table):
-            raise ValueError("CPGrid factor tables do not match")
+            raise ValueError("the encoding's tables do not match")
         for k, p in scene.hash_table.items():
             _copy(p, table[k])
     else:
@@ -103,7 +107,9 @@ def scene_from_numpy(config, bound, num_kf: int, params, buffers,
 
 def scene_to_numpy(scene: SceneRepresentation):
     """(params, buffers) as dicts of numpy arrays in the JAX layout."""
-    if isinstance(scene.hash_table, torch.nn.ParameterDict):
+    if scene.hash_table is None:
+        table = None
+    elif isinstance(scene.hash_table, torch.nn.ParameterDict):
         table = {k: p.detach().cpu().numpy().copy()
                  for k, p in scene.hash_table.items()}
     else:

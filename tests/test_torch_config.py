@@ -124,12 +124,21 @@ def test_synthetic_config_dataset_builds(path, monkeypatch):
 
 
 def test_gather_mode_config_raises_naming_it(monkeypatch):
-    """corridor_v25g.yaml (RO.eval_mode gather, not ported) raises
-    NotImplementedError naming the mode before any volume is built."""
+    """corridor_v25g.yaml (RO.eval_mode gather) is ported: its tracker
+    scores candidates with the exact gather on a float32 track view; the
+    config with tsdf_interp trilinear raises ValueError naming gather
+    before any volume is built, as the JAX tracker refuses it."""
     from remixfusion_tpu_torch.slam import RemixFusionTorch
+    from remixfusion_tpu_torch.tracking import rotracker
 
     monkeypatch.chdir(ROOT)
     cfg = load_config("configs/Synthetic/corridor_v25g.yaml")
     assert cfg["dataset"] == "synthetic_large"
-    with pytest.raises(NotImplementedError, match="eval_mode 'gather'"):
+    monkeypatch.setattr(rotracker.pst_mod, "load_pst", lambda _p, sizes: {
+        c: np.zeros((7, 8, 6), np.float32) for c in range(3)})
+    tt = rotracker.ROTracker(cfg, 480, 640, np.eye(3, dtype=np.float32),
+                             (400, 160, 400), 0.025, (10, 16, 40), "cpu")
+    assert (tt.eval_mode, tt.track_dtype) == ("gather", "float32")
+    cfg["RO"]["tsdf_interp"] = "trilinear"
+    with pytest.raises(ValueError, match="'gather'"):
         RemixFusionTorch(cfg, device="cpu")

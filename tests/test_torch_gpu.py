@@ -223,6 +223,62 @@ def test_hash_table_grad_kernel_matches_plain(cuda_device, n_pts):
     assert torch.equal(out == 0, ref == 0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["nearest", "trilinear"])
+def test_brick_eval_dense_layout_matches_plain(cuda_device, interp):
+    """The dense volume (volume.brick_fusion false): the same field as a
+    dense [X, Y, Z] volume read through layout (1, Y, Z), one voxel a
+    'brick' of row stride 1. The kernel against its plain version, and
+    bitwise its own result on the brick-major copy (the same windows)."""
+    params, pix, base, tsdf_bm, layout, table = brick_volume_inputs(
+        1024, 4800, 17, interp)
+    b, BY, BZ = layout
+    X = tsdf_bm.shape[0] // (BY * BZ) * b
+    dense = np.ascontiguousarray(tsdf_bm.reshape(
+        X // b, BY, BZ, b, b, b).transpose(0, 3, 1, 4, 2, 5).reshape(-1, 1))
+    dense_layout = (1, BY * b, BZ * b)
+    params, pix, base, tsdf_bm, dense, table = (
+        torch.from_numpy(a).to(cuda_device)
+        for a in (params, pix, base, tsdf_bm, dense, table))
+    before = be.brick_eval_volume.launches
+    out = be.brick_eval_volume(params, pix, base, dense, dense_layout, table,
+                               interp=interp)
+    torch.cuda.synchronize()
+    assert be.brick_eval_volume.launches == before + 1
+    ref = be.brick_eval_volume_reference(params, pix, base, dense,
+                                         dense_layout, table, interp=interp)
+    assert torch.equal(out >= 1e6, ref >= 1e6)
+    keep = out < 1e6
+    d = (out - ref).abs()[keep]
+    assert d.max().item() < 5e-3 and d.mean().item() < 1e-4
+    assert torch.equal(out, be.brick_eval_volume(
+        params, pix, base, tsdf_bm, layout, table, interp=interp))
+
+
+@pytest.mark.gpu
+def test_hash_table_grad_dense_grid_matches_plain(cuda_device):
+    """The DenseGrid table at synthetic_bench.yaml's widths (desired 200:
+    dense levels 16^3, 59^3, 218^3, 800^3, ~522.6 M rows, 4.2 GB): row
+    indices and row * 2 stay below 2^31 in the kernel's uint32 arithmetic,
+    level 0 (4,096 rows) is privatized; against the plain version, rows no
+    point touched exactly zero."""
+    from remixfusion_tpu_torch.models.encodings import DenseGridEncoding
+    from remixfusion_tpu_torch.ops import hash_enc as he
+
+    enc = DenseGridEncoding(4, 2, 16, 200)
+    assert not any(enc.hashed) and 2 * enc.table_size < 2 ** 31
+    assert he.privatized_rows(enc) == enc.offsets[1] == 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand((151040, 3), generator=gen, device=cuda_device)
+    g = torch.randn((151040, 8), generator=gen, device=cuda_device)
+    out = he.hash_table_grad(enc, x, g, enc.table_size)
+    ref = he.hash_table_grad_reference(enc, x, g, enc.table_size)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(out == 0, ref == 0)
+
+
 def ray_points(n_rays, n_samples, seed):
     """Ray-major samples as a render batch orders them: n_samples points
     along each of n_rays rays through the unit cube."""

@@ -236,12 +236,29 @@ def test_perturbed_draw_ranges():
 
 
 def test_tracker_rejects_unported_modes():
-    for ro in ({"eval_mode": "gather"},
-               {"eval_mode": "pallas", "brick_radius": 3}):
-        cfg = tiny_config(RO=ro)
-        with pytest.raises(NotImplementedError):
-            ROTracker(cfg, 48, 64, np.eye(3, dtype=np.float32), (80, 80, 80),
-                      0.05, (10, 8, 8), "cpu")
+    """Every eval_mode and brick_radius of the JAX tracker builds (gather,
+    brick at r = 3, pallas, which reads 4^3 windows whatever the radius,
+    as in JAX); the settings no tracker runs raise ValueError: trilinear
+    with gather (JAX raises alike), an unknown mode, and pallas on a
+    float32 track view (the kernel rounds its windows through
+    bfloat16)."""
+    K = np.eye(3, dtype=np.float32)
+    for ro, dtype in (({"eval_mode": "gather"}, "float32"),
+                      ({"eval_mode": "brick", "brick_radius": 3},
+                       "bfloat16"),
+                      ({"eval_mode": "pallas", "brick_radius": 3},
+                       "bfloat16")):
+        tt = ROTracker(tiny_config(RO=ro), 48, 64, K, (80, 80, 80), 0.05,
+                       (10, 8, 8), "cpu")
+        assert (tt.eval_mode, tt.track_dtype) == (ro["eval_mode"], dtype)
+        assert tt.brick_r == ro.get("brick_radius", 2)
+    for ro, vol in (({"eval_mode": "gather", "tsdf_interp": "trilinear"},
+                     {}),
+                    ({"eval_mode": "bricks"}, {}),
+                    ({"eval_mode": "pallas"}, {"track_dtype": "float32"})):
+        with pytest.raises(ValueError):
+            ROTracker(tiny_config(RO=ro, volume=vol), 48, 64, K,
+                      (80, 80, 80), 0.05, (10, 8, 8), "cpu")
 
 
 REAL_CONFIGS = sorted(
