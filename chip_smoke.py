@@ -129,7 +129,9 @@ prints no result line):
      against its plain version on the last frame's tiers (phase 3's
      tolerance), and the dense fuse of that frame on the card against a
      CPU recompute on FUSE_SUBSET of the voxels it updated (tsdf within
-     FUSE_TOL, weights equal); brick (synthetic_bench.yaml with
+     FUSE_TOL, weights equal), and the tiled fuse of every tile in that
+     frame's frustum (no budget) on the card bitwise equal to the card's
+     full sweep; brick (synthetic_bench.yaml with
      RO.eval_mode brick, brick_radius 3, tsdf_interp trilinear and
      volume.sel_reuse 2, 30 frames): brick_eval never launched, and the
      count of frames that fused a reused selection printed and above 0;
@@ -572,7 +574,7 @@ def phase_kernels(torch, slam, frames):
         "call_ms": mean("call_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
         "bound_by": max(set(by), key=by.count),
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "max_abs_err": max(s["max_abs_err"] for s in main),
         "library_ms": None,
         "shapes": shapes,
     }
@@ -666,8 +668,9 @@ def phase_hash_kernel(torch, captured, table="HashGrid", n_graph=50):
 
 
 def hash_kernel_record(shapes):
-    """The kernels-line record of hash_table_grad: the means over slice B's
-    shapes, every shape listed."""
+    """The kernels-line record of hash_table_grad: the means and the
+    largest error over slice B's shapes, every shape listed (the DenseGrid
+    table's error under its own entry)."""
     main = [s for s in shapes if s["table"] == "HashGrid"]
     mean = lambda k: sum(s[k] for s in main) / len(main)  # noqa: E731
     return {
@@ -677,7 +680,7 @@ def hash_kernel_record(shapes):
         "ms": mean("device_ms"), "device_ms": mean("device_ms"),
         "call_ms": mean("call_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": main[0]["bound_by"],
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "max_abs_err": max(s["max_abs_err"] for s in main),
         "library_ms": mean("library_ms"), "shapes": shapes,
     }
 
@@ -1115,9 +1118,13 @@ def check_field(slam, label):
 
 def dense_fuse_check(torch, slam, frames):
     """[dense]: one frame's dense fuse (the last frame's tiles at its
-    tracked pose) on the card against a CPU recompute from the same
-    volume, on a fixed FUSE_SUBSET of the voxels it updated: tsdf within
-    FUSE_TOL, weights equal, colours within one 8-bit step."""
+    tracked pose, or the full sweep when they exceed the budget) on the
+    card against a CPU recompute from the same volume, on a fixed
+    FUSE_SUBSET of the voxels it updated: tsdf within FUSE_TOL, weights
+    equal, colours within one 8-bit step. Then the tiled path on the card:
+    every tile of the frame's frustum, with no budget, fused from the same
+    volume must equal the card's full sweep bit for bit (the tiles are
+    disjoint and hold every voxel the frame can update)."""
     import numpy as np
 
     from remixfusion_tpu_torch.ops import tsdf as tsdf_ops
@@ -1133,17 +1140,20 @@ def dense_fuse_check(torch, slam, frames):
     rgb255 = torch.floor(torch.tensor(quantize_rgb(batch["rgb"])) * 255.0)
     args = (depth, rgb255, torch.tensor(slam.K), torch.tensor(c2w))
     kw = dict(voxel_size=mv.voxel_size, trunc_margin=mv.trunc_margin,
-              weight_clamp=mv.weight_clamp, tiles=tiles, tile=mv.tile)
+              weight_clamp=mv.weight_clamp, tile=mv.tile)
+    card_args = [a.cuda() for a in args]
+    card_one = torch.ones((), device="cuda")
     cpu = tsdf_ops.VolumeState(*(a.cpu() for a in mv.state))
     card = tsdf_ops.VolumeState(*(a.clone() for a in mv.state))
     w0 = cpu.weight.clone()
     t0 = time.time()
-    tsdf_ops.fuse_dense(card, *(a.cuda() for a in args),
-                        obs_weight=torch.ones((), device="cuda"), **kw)
+    tsdf_ops.fuse_dense(card, *card_args, obs_weight=card_one, tiles=tiles,
+                        **kw)
     torch.cuda.synchronize()
     t_card = time.time() - t0
     t0 = time.time()
-    tsdf_ops.fuse_dense(cpu, *args, obs_weight=torch.ones(()), **kw)
+    tsdf_ops.fuse_dense(cpu, *args, obs_weight=torch.ones(()), tiles=tiles,
+                        **kw)
     t_cpu = time.time() - t0
     upd = torch.nonzero((cpu.weight != w0).reshape(-1))[:, 0]
     if upd.numel() < FUSE_SUBSET:
@@ -1156,26 +1166,57 @@ def dense_fuse_check(torch, slam, frames):
     ref = [a.reshape(-1, *a.shape[3:])[pick] for a in cpu[:3]]
     err = float((got[0] - ref[0]).abs().max())
     c_err = float((got[2] - ref[2]).abs().max())
-    in_frustum = len(tsdf_ops.frustum_tiles(
+    w_eq = torch.equal(got[1], ref[1])
+    del cpu, got, ref
+    offs = tsdf_ops.frustum_tiles(
         mv.dims, mv.tile, mv.vol_bnds[:, 0], mv.voxel_size, slam.K, c2w,
         *batch["depth"].shape,
         max_depth=float(np.max(batch["depth"])) + mv.trunc_margin + 0.1,
-        pad_px=16))
+        pad_px=16)
+    n_tiles = int(np.prod([d // mv.tile for d in mv.dims]))
+    if not 0 < len(offs) < n_tiles:
+        fail(f"dense: {len(offs)} of {n_tiles} tiles in the frustum; the "
+             f"tiled check needs a proper subset")
+    if tiles is None:
+        full = card
+    else:
+        full = tsdf_ops.VolumeState(*(a.clone() for a in mv.state))
+        tsdf_ops.fuse_dense(full, *card_args, obs_weight=card_one,
+                            tiles=None, **kw)
+    tiled = tsdf_ops.VolumeState(*(a.clone() for a in mv.state))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tsdf_ops.fuse_dense(tiled, *card_args, obs_weight=card_one, tiles=offs,
+                        **kw)
+    torch.cuda.synchronize()
+    t_tiled = time.time() - t0
+    same = all(torch.equal(a, b) for a, b in zip(tiled[:3], full[:3]))
+    n_diff = int((tiled.tsdf != full.tsdf).sum()
+                 + (tiled.weight != full.weight).sum()
+                 + (tiled.color != full.color).sum())
+    del tiled, full
     how = "the full sweep" if tiles is None else f"{len(tiles)} tiles"
-    print(f"[dense] fuse of frame {last} ({in_frustum} of "
-          f"{int(np.prod([d // mv.tile for d in mv.dims]))} tiles of "
-          f"{mv.tile}^3 in its frustum, budget {mv.tile_budget}: {how}): "
+    print(f"[dense] fuse of frame {last} ({len(offs)} of {n_tiles} tiles "
+          f"of {mv.tile}^3 in its frustum, budget {mv.tile_budget}: {how}): "
           f"{upd.numel()} voxels updated; card vs CPU on {FUSE_SUBSET} of "
           f"them: tsdf max|d| {err:.3e}, weights "
-          f"{'equal' if torch.equal(got[1], ref[1]) else 'DIFFER'}, colour "
+          f"{'equal' if w_eq else 'DIFFER'}, colour "
           f"max|d| {c_err}; card {1000 * t_card:.1f} ms, CPU "
           f"{1000 * t_cpu:.1f} ms", flush=True)
-    if not (err <= FUSE_TOL and torch.equal(got[1], ref[1])
-            and c_err <= 1.0):
+    print(f"[dense] tiled fuse of all {len(offs)} frustum tiles on the "
+          f"card vs the card's full sweep: "
+          f"{'bitwise equal' if same else f'{n_diff} values DIFFER'}; "
+          f"tiled {1000 * t_tiled:.1f} ms", flush=True)
+    if not (err <= FUSE_TOL and w_eq and c_err <= 1.0):
         fail(f"dense: the card's fuse differs from the CPU recompute (tsdf "
              f"{err} > {FUSE_TOL}, or weights, or colour {c_err})")
+    if not same:
+        fail(f"dense: the card's tiled fuse differs from its full sweep in "
+             f"{n_diff} values")
     return {"voxels_updated": int(upd.numel()), "tsdf_max_abs_err": err,
-            "card_ms": 1000 * t_card, "cpu_ms": 1000 * t_cpu}
+            "card_ms": 1000 * t_card, "cpu_ms": 1000 * t_cpu,
+            "frustum_tiles": len(offs), "tiled_ms": 1000 * t_tiled,
+            "tiled_equals_full_sweep": same}
 
 
 def mode_tracker(torch, slam, mode, interp):

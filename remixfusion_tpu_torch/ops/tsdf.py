@@ -185,25 +185,31 @@ def reset_volume(vol: VolumeState) -> VolumeState:
                        torch.zeros_like(vol.color), vol.origin)
 
 
-def pick_slab_count(X: int, yz: int, target_voxels: int = 4_000_000) -> int:
-    """Smallest divisor n of X whose x-slab (X / n * yz voxels) fits the
-    target: the full sweep's working set."""
+# fuse_dense's working sets: the full sweep's x-slab holds at most
+# _SLAB_TARGET_VOXELS voxels, a step of the tiled path _FUSE_CHUNK voxels.
+_SLAB_TARGET_VOXELS = 4_000_000
+_FUSE_CHUNK = 1 << 22
+
+
+def pick_slab_count(X: int, yz: int) -> int:
+    """Smallest divisor n of X whose x-slab (X / n * yz voxels) holds at
+    most _SLAB_TARGET_VOXELS: the full sweep's working set."""
     for n in range(1, X + 1):
-        if X % n == 0 and (X // n) * yz <= target_voxels:
+        if X % n == 0 and (X // n) * yz <= _SLAB_TARGET_VOXELS:
             return n
     return X
 
 
 def fuse_dense(state: VolumeState, depth, rgb255, K, c2w, *,
                voxel_size: float, trunc_margin: float, weight_clamp: bool,
-               obs_weight, tiles=None, tile: int | None = None,
-               chunk: int = 1 << 22) -> VolumeState:
+               obs_weight, tiles=None, tile: int | None = None
+               ) -> VolumeState:
     """Fuse one frame into a dense [X, Y, Z] volume, in place. tiles=None:
     every voxel, in x-slabs of pick_slab_count (make_slab_fuser's full
     sweep); else `tiles` int [n, 3] are the voxel offsets (multiples of
     `tile`, which divides every dim) of the disjoint tiles to update, as
-    frustum_tiles selects them (make_tiled_fuser), moved `chunk` voxels at
-    a time. Voxel (i, j, k) sits at origin + (i, j, k) * voxel_size. depth
+    frustum_tiles selects them (make_tiled_fuser), moved _FUSE_CHUNK voxels
+    at a time. Voxel (i, j, k) sits at origin + (i, j, k) * voxel_size. depth
     [H, W] meters, rgb255 [H, W, 3] in 0..255, K [3, 3], c2w [4, 4],
     obs_weight a float32 scalar tensor: tensors on the volume's device.
     The per-voxel update is _fuse_local_update, the brick fuser's."""
@@ -244,7 +250,7 @@ def fuse_dense(state: VolumeState, depth, rgb255, K, c2w, *,
     t_flat = state.tsdf.view(-1)
     w_flat = state.weight.view(-1)
     c_flat = state.color.view(-1, 3)
-    per = max(1, chunk // t ** 3)
+    per = max(1, _FUSE_CHUNK // t ** 3)
     for s in range(0, offs.shape[0], per):
         oc = offs[s:s + per]
         vx = (oc[:, 0:1] + li).reshape(-1)

@@ -289,11 +289,28 @@ def _port_state(case):
     return pt.VolumeState(*(torch.tensor(a) for a in case["vol"]))
 
 
-def test_fuse_frame_and_slab_fuser_match_jax():
+def _count_updates(monkeypatch):
+    """Count fuse_dense's calls of the per-voxel update: one per slab of
+    the full sweep, one per chunk of the tiled path."""
+    calls = []
+    inner = pt._fuse_local_update
+
+    def counted(*a):
+        calls.append(1)
+        return inner(*a)
+
+    monkeypatch.setattr(pt, "_fuse_local_update", counted)
+    return calls
+
+
+def test_fuse_frame_and_slab_fuser_match_jax(monkeypatch):
     """The port's full sweep (fuse_dense without tiles, in x-slabs of
     pick_slab_count) against JAX's fuse_frame (local mode, colours as
     given) and make_slab_fuser (colours floor(255 x)), with weight_clamp
-    on and off."""
+    on and off. The slab target is cut from its 4M voxels so that this
+    small volume sweeps in several slabs, as the 300^3 volume does."""
+    assert pt.pick_slab_count(300, 300 * 300) \
+        == jt.pick_slab_count(300, 300 * 300, pt._SLAB_TARGET_VOXELS) == 10
     c = _frame_case()
     t0, w0, c0, origin = c["vol"]
     rgb255 = np.floor(c["rgb"] * 255.0)
@@ -309,10 +326,11 @@ def test_fuse_frame_and_slab_fuser_match_jax():
         got = pt.fuse_frame(_port_state(c), *targs, voxel_size=c["vox"],
                             trunc_margin=c["trunc"], weight_clamp=clamp)
         _hold(got, ref, w0)
+    monkeypatch.setattr(pt, "_SLAB_TARGET_VOXELS", 20_000)
     n = jt.pick_slab_count(c["dims"][0], c["dims"][1] * c["dims"][2],
                            target_voxels=20_000)
     assert n == pt.pick_slab_count(c["dims"][0],
-                                   c["dims"][1] * c["dims"][2], 20_000) > 1
+                                   c["dims"][1] * c["dims"][2]) > 1
     fuser = jt.make_slab_fuser(
         c["dims"], n, voxel_size=c["vox"], trunc_margin=c["trunc"],
         im_h=c["H"], im_w=c["W"], weight_clamp=True, scale_rgb=True)
@@ -321,18 +339,21 @@ def test_fuse_frame_and_slab_fuser_match_jax():
                 jnp.asarray(c["K"]), jnp.asarray(c["c2w"]),
                 jnp.asarray(1.0, jnp.float32))
     st = _port_state(c)
+    calls = _count_updates(monkeypatch)
     got = pt.fuse_dense(st, *targs, voxel_size=c["vox"],
                         trunc_margin=c["trunc"], weight_clamp=True,
-                        obs_weight=torch.ones(()), chunk=20_000)
+                        obs_weight=torch.ones(()))
     assert got is st  # in place
+    assert len(calls) == n
     _hold(got, ref, w0)
 
 
-def test_tiled_fuser_matches_jax_and_the_full_sweep():
+def test_tiled_fuser_matches_jax_and_the_full_sweep(monkeypatch):
     """The frustum tiles of frustum_tiles (tile 10, which divides every
     dim) through fuse_dense against JAX's make_tiled_fuser (padded with -1
     offsets), and against the port's own full sweep bitwise: the tiles are
-    disjoint and hold every voxel the frame can update."""
+    disjoint and hold every voxel the frame can update. The chunk is cut
+    to three tiles so that the tiles move through in several chunks."""
     c = _frame_case(2)
     t0, w0, c0, origin = c["vol"]
     tile = 10
@@ -358,8 +379,11 @@ def test_tiled_fuser_matches_jax_and_the_full_sweep():
              torch.tensor(c["K"]), torch.tensor(c["c2w"]))
     kw = dict(voxel_size=c["vox"], trunc_margin=c["trunc"],
               weight_clamp=True, obs_weight=torch.ones(()))
+    monkeypatch.setattr(pt, "_FUSE_CHUNK", 3 * tile ** 3)
+    calls = _count_updates(monkeypatch)
     tiled = pt.fuse_dense(_port_state(c), *targs, tiles=offs, tile=tile,
-                          chunk=3 * tile ** 3, **kw)
+                          **kw)
+    assert len(calls) == -(-len(offs) // 3) > 1
     _hold(tiled, ref, w0)
     full = pt.fuse_dense(_port_state(c), *targs, **kw)
     for a, b in zip(tiled[:3], full[:3]):
