@@ -39,6 +39,18 @@ prints no result line):
      main-path shapes and in both interpolation modes, with the parity
      tests' tolerance (max |d| < 5e-3, mean < 1e-4, same 1e6-guard
      positions) and the same bits on a second call;
+  3b. render (after phase 3 and the mode checks of phase 10, on slice
+     A's finished pipeline, at 640x480): tools/rendering_eval.
+     calc_2d_metric over frames 0, 10, .., 50 with the run's poses and
+     each frame's depth as the target (307,200 rays x 59 samples a
+     frame): one {"render": ...} JSON line with PSNR,
+     SSIM, the perceptual distance and its kind, depth-L1, the render ms per
+     frame (host clock, ending in torch.cuda.synchronize) and the chunk
+     size; a fixed RENDER_SUBSET-ray subset of frame 50 rendered on the
+     card and on a CPU copy of the scene with the same perturbation draws,
+     rgb and depth within RENDER_TOL; render_img of frame 50 read back as a
+     2 x 3 grid of 120x160 panels. Launch counts are zeroed before and read
+     after (rendering launches no kernel of the main path);
   4. slice B: configs/Synthetic/bench_hashgrid.yaml (HashGrid residual
      field, 16 levels, 2^16 hashed) the same way: brick_eval launched 20
      times per tracked frame, hash_table_grad twice per map iteration (the
@@ -138,7 +150,25 @@ prints no result line):
      ab_triplane (configs/Synthetic/ab_triplane.yaml, the 320x240 verify
      scene with Triplane) and more (configs/Synthetic/synthetic_more.yaml,
      Frequency with the 'more' re-centre policy), 20 frames each;
-  13. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
+  13. render eval: configs/Synthetic/rendering_eval_example.yaml (the JAX
+     package's rendering record, BASELINE.md:734-742) run whole (40 frames,
+     mapping.save_ckpt) with mesh.vis RENDER_EVAL_VIS and mesh.render_img 1
+     in the smoke's copy of the config (build/smoke/render_eval/): brick_eval
+     launched 20 x 39 times, full and RO-only ATE below 2 cm, the mesh.vis
+     frame's tracking_result.txt line, trajectory plot and render_img
+     figure written; then `rendering_eval_torch.py --config <that copy>
+     --gap 5` in a fresh process scores the checkpoint on the card against
+     the sanity bars RENDER_BARS, printed beside the record (RENDER_TARGET)
+     in a {"render_eval": ...} line;
+  14. live: LIVE_FRAMES frames of configs/Synthetic/verify_small.yaml with
+     the live viewer (viz.live 1, live_every 2, live_render_every 4);
+     after the run and before close(), /state.json and /frame fetched from
+     127.0.0.1 with urllib: the last frame and the whole trajectory, the
+     frame a BMP or JPEG at the size of a gap-8 render (30x40) or of the
+     input at stride 2 (120x160), the published frames' sizes in order;
+     brick_eval launched 20 times per tracked frame; after close() the
+     port refuses connections;
+  15. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
      and power limit; and last the {"ok": true, ...} line.
 Every kernel is timed two ways: device_ms, the device time of one call (a
 CUDA graph of many calls replayed back to back, timed with CUDA events,
@@ -223,6 +253,26 @@ PEAK_BYTES = 3.35e12
 # that reach it (ok and inside the image)
 OPS_PAIR = 64
 OPS_LOOKUP = {"nearest": 17, "trilinear": 53}
+# [render]: slice A's frames 0, 10, ..., 50 scored; a fixed ray subset of
+# frame 50 rendered on the card and on a CPU copy with the same draws
+RENDER_GAP = 10
+RENDER_SUBSET = 4096
+RENDER_TOL = 1e-4
+# [render eval]: the JAX package's rendering record (BASELINE.md:734-742:
+# rendering_eval_example.yaml, checkpoint reload, every 5th frame) is the
+# target; the bars are sanity bars for a broken render
+RENDER_EVAL = os.path.join(SYN, "rendering_eval_example.yaml")
+RENDER_EVAL_GAP = 5
+RENDER_EVAL_VIS = 20
+RENDER_TARGET = {"psnr": 27.83, "ssim": 0.915, "depth_l1": 0.015,
+                 "rf_perceptual": 0.022}
+RENDER_BARS = {"psnr": (">=", 22.0), "ssim": (">=", 0.85),
+               "depth_l1": ("<=", 0.03), "rf_perceptual": ("<=", 0.06),
+               "lpips": ("<=", 0.3)}
+# [live]: verify_small.yaml with the live viewer
+LIVE = os.path.join(SYN, "verify_small.yaml")
+LIVE_FRAMES = 12
+LIVE_VIZ = {"live": 1, "live_every": 2, "live_render_every": 4}
 
 
 def fail(msg):
@@ -1398,6 +1448,280 @@ def phase_gather(torch):
     return out, launches
 
 
+def phase_render(torch, slam, out):
+    """[render] on slice A's finished pipeline: calc_2d_metric over frames
+    0, RENDER_GAP, ... with the run's poses and the frames' depth as the
+    target; a fixed RENDER_SUBSET-ray subset of the last scored frame on
+    the card and on a CPU copy of the scene with the same draws (within
+    RENDER_TOL); render_img of that frame read back."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.slam import pipeline
+    from remixfusion_tpu_torch.tools.rendering_eval import calc_2d_metric
+    from remixfusion_tpu_torch.utils.convert import scene_from_numpy, \
+        scene_to_numpy
+    from remixfusion_tpu_torch.utils.imageio import read_png
+
+    n = out["frames"]
+    poses = slam.trajectory(n)
+    res = calc_2d_metric(slam, poses, gap=RENDER_GAP)
+    kind = "lpips" if "lpips" in res else "rf_perceptual"
+    want = list(range(0, n, RENDER_GAP))
+    if res["frames"] != want:
+        fail(f"render: scored frames {res['frames']}, expected {want}")
+    for key in ("psnr", "ssim", kind, "depth_l1"):
+        if not np.isfinite(res[key]):
+            fail(f"render: {key} is {res[key]}")
+    H, W = slam.dataset.H, slam.dataset.W
+    S = slam.scene.z_vals_shape(1)[1]
+
+    last = want[-1]
+    batch = slam.dataset[last]
+    idx = np.sort(np.random.default_rng(0).choice(H * W, RENDER_SUBSET,
+                                                  replace=False))
+    c2w = poses[last]
+    d = np.asarray(batch["direction"], np.float32).reshape(-1, 3)[idx] \
+        @ c2w[:3, :3].T
+    o = np.tile(c2w[:3, 3], (RENDER_SUBSET, 1))
+    td = np.asarray(batch["depth"], np.float32).reshape(-1)[idx][:, None]
+    u = torch.rand(slam.scene.z_vals_shape(RENDER_SUBSET),
+                   generator=torch.Generator().manual_seed(0))
+    params, buffers = scene_to_numpy(slam.scene)
+    cpu = scene_from_numpy(slam.config, slam.bound, slam.num_kf, params,
+                           buffers, device="cpu")
+    got = {}
+    for name, scene, dev in (("card", slam.scene, "cuda"), ("cpu", cpu,
+                                                            "cpu")):
+        with torch.no_grad():
+            r = scene.render_rays(*(torch.from_numpy(
+                np.ascontiguousarray(a, np.float32)).to(dev)
+                for a in (o, d, td)), u=u.to(dev))
+        got[name] = (r["rgb_res_map"].cpu().numpy(),
+                     r["depth_res_map"].cpu().numpy())
+    err_rgb = float(np.abs(got["card"][0] - got["cpu"][0]).max())
+    err_depth = float(np.abs(got["card"][1] - got["cpu"][1]).max())
+    if not (err_rgb <= RENDER_TOL and err_depth <= RENDER_TOL):
+        fail(f"render: card and CPU renders of {RENDER_SUBSET} rays differ "
+             f"by {err_rgb} (rgb) / {err_depth} (depth) > {RENDER_TOL}")
+
+    path = slam.render_img(last, batch["depth"], batch["rgb"], c2w,
+                           batch["direction"])
+    img, _ = read_png(path)
+    want_shape = (2 * -(-H // 4), 3 * -(-W // 4), 3)
+    if img.shape != want_shape:
+        fail(f"render: {path} is {img.shape}, expected {want_shape}")
+    line = {"frames": res["frames"], "psnr": res["psnr"],
+            "ssim": res["ssim"], "perceptual": res[kind],
+            "perceptual_kind": kind, "depth_l1_m": res["depth_l1"],
+            "render_ms_per_frame": float(np.mean(res["render_ms"])),
+            "render_ms": res["render_ms"], "chunk_rays":
+                pipeline._RENDER_CHUNK, "rays_per_frame": H * W,
+            "samples_per_ray": S, "points_per_frame": H * W * S,
+            "subset_max_abs_err": {"rgb": err_rgb, "depth": err_depth},
+            "render_img": os.path.relpath(path, ROOT),
+            "render_img_shape": list(img.shape)}
+    print(json.dumps({"render": line}), flush=True)
+    return line
+
+
+def render_eval_config(out_dir):
+    """The smoke's copy of rendering_eval_example.yaml (output under
+    build/smoke/, mesh.vis RENDER_EVAL_VIS with mesh.render_img), as a
+    file, for the rendering_eval_torch.py process."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "rendering_eval_smoke.yaml")
+    with open(path, "w") as f:
+        f.write(f"inherit_from: {RENDER_EVAL}\ndata:\n  output: {out_dir}\n"
+                f"mesh:\n  vis: {RENDER_EVAL_VIS}\n  render_img: 1\n")
+    return path
+
+
+def phase_render_eval(torch):
+    """[render eval]: the JAX record's protocol. rendering_eval_example.yaml
+    runs whole (brick_eval launches counted, ATE < ATE_BAR_CM, the mesh.vis
+    frame's tracking_result.txt line, trajectory plot and render_img
+    figure), then rendering_eval_torch.py --gap RENDER_EVAL_GAP scores the
+    checkpoint that run wrote, in a fresh process, against RENDER_BARS."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.config import load_config
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.slam import RemixFusionTorch
+    from remixfusion_tpu_torch.utils.imageio import read_png
+
+    out_dir = os.path.join(ROOT, "build", "smoke", "render_eval")
+    cfg_path = render_eval_config(out_dir)
+    cfg = load_config(cfg_path)
+    t0 = time.time()
+    slam = RemixFusionTorch(cfg, device="cuda")
+    slam.preload(slam.dataset.num_frames)
+    t_setup = time.time() - t0
+    iters = int(cfg["RO"]["particle_iter_lens"])
+    be.brick_eval_volume.launches = 0
+    t0 = time.time()
+    out = slam.run()
+    t_run = time.time() - t0
+    launches = be.brick_eval_volume.launches
+    print(f"[render eval] {os.path.relpath(RENDER_EVAL, ROOT)} + mesh.vis "
+          f"{RENDER_EVAL_VIS}, mesh.render_img 1: frames={out['frames']} "
+          f"ms_per_frame={out['ms_per_frame']} ms_per_round="
+          f"{out['ms_per_round']} ate_rmse_cm={out['ate_rmse_cm']} "
+          f"ate_rmse_cm_ro_only={out['ate_rmse_cm_ro_only']} launches="
+          f"{{'brick_eval': {launches}}} wall: set-up {t_setup:.1f} s, run "
+          f"{t_run:.1f} s", flush=True)
+    if launches != iters * out["tracked_frames"]:
+        fail(f"render eval: brick_eval launched {launches} times, expected "
+             f"{iters * out['tracked_frames']}")
+    for key in ("ate_rmse_cm_ro_only", "ate_rmse_cm"):
+        if not out[key] < ATE_BAR_CM:
+            fail(f"render eval: {key} {out[key]} cm >= {ATE_BAR_CM}")
+    run_dir = slam.out_dir
+    with open(os.path.join(run_dir, "tracking_result.txt")) as f:
+        ids = [ln.split()[0] for ln in f]
+    vis = str(RENDER_EVAL_VIS)
+    if ids != [vis, str(out["frames"] - 1)]:
+        fail(f"render eval: tracking_result.txt lines at frames {ids}, "
+             f"expected [{vis}, {out['frames'] - 1}]")
+    for name in (f"frame_{vis}.png", f"{vis}.png", "checkpoint.npz"):
+        if not os.path.exists(os.path.join(run_dir, name)):
+            fail(f"render eval: {name} was not written")
+    fig, _ = read_png(os.path.join(run_dir, f"{vis}.png"))
+    H, W = slam.dataset.H, slam.dataset.W
+    if fig.shape != (2 * -(-H // 4), 3 * -(-W // 4), 3):
+        fail(f"render eval: {vis}.png is {fig.shape}")
+    del slam
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "rendering_eval_torch.py"),
+         "--config", cfg_path, "--gap", str(RENDER_EVAL_GAP)], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    t_eval = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"render eval: rendering_eval_torch.py exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith('{"rendering_eval"')]
+    if len(lines) != 1:
+        fail(f"render eval: no result line in {proc.stdout[-2000:]}")
+    res = json.loads(lines[0])["rendering_eval"]
+    if res["frames"] != list(range(0, out["frames"], RENDER_EVAL_GAP)):
+        fail(f"render eval: scored frames {res['frames']}")
+    if res["device"] != "cuda":
+        fail(f"render eval: scored on {res['device']}")
+    kind = "lpips" if "lpips" in res else "rf_perceptual"
+    metrics = {k: res[k] for k in ("psnr", "ssim", "depth_l1", kind)}
+    for key, value in metrics.items():
+        op, bar = RENDER_BARS[key]
+        if not (value >= bar if op == ">=" else value <= bar):
+            fail(f"render eval: {key} {value} misses the sanity bar "
+                 f"{op} {bar}")
+    line = {**metrics, "perceptual_kind": kind,
+            "target": {k: RENDER_TARGET[k] for k in metrics
+                       if k in RENDER_TARGET},
+            "bars": {k: RENDER_BARS[k] for k in metrics},
+            "render_ms_per_frame": float(np.mean(res["render_ms"])),
+            "frames": res["frames"], "eval_process_s": t_eval,
+            "online": {k: out[k] for k in ("ate_rmse_cm",
+                                           "ate_rmse_cm_ro_only",
+                                           "ms_per_frame", "ms_per_round")},
+            "launches": {"brick_eval": launches}}
+    print(json.dumps({"render_eval": line}), flush=True)
+    return launches
+
+
+def image_dims(body):
+    """(height, width) of a BMP or baseline/progressive JPEG, else None."""
+    if body[:2] == b"BM":
+        return (abs(int.from_bytes(body[22:26], "little", signed=True)),
+                int.from_bytes(body[18:22], "little"))
+    if body[:2] != b"\xff\xd8":
+        return None
+    pos = 2
+    while pos + 9 < len(body):
+        if body[pos] != 0xFF:
+            return None
+        marker = body[pos + 1]
+        if marker in (0xC0, 0xC1, 0xC2):
+            return (int.from_bytes(body[pos + 5:pos + 7], "big"),
+                    int.from_bytes(body[pos + 7:pos + 9], "big"))
+        pos += 2 + int.from_bytes(body[pos + 2:pos + 4], "big")
+    return None
+
+
+def phase_live(torch):
+    """[live]: LIVE_FRAMES frames of verify_small.yaml with the live
+    viewer (LIVE_VIZ). After the run, before close(): /state.json holds the
+    last frame and the whole trajectory, /frame decodes at the size of a
+    gap-8 render or of the input at stride 2, and the frames published were
+    those; after close() the port refuses connections."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from remixfusion_tpu_torch.config import load_config
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.slam import RemixFusionTorch
+
+    cfg = load_config(LIVE)
+    cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke", "live")
+    cfg["viz"] = dict(LIVE_VIZ)
+    slam = RemixFusionTorch(cfg, device="cuda")
+    slam.preload(LIVE_FRAMES + 1)
+    port = slam.viewer.port
+    shapes = []
+    publish = slam.viewer.publish_frame
+
+    def record(rgb):
+        shapes.append(tuple(np.asarray(rgb).shape[:2]))
+        publish(rgb)
+
+    slam.viewer.publish_frame = record
+    be.brick_eval_volume.launches = 0
+    try:
+        out = slam.run(max_frames=LIVE_FRAMES)
+        launches = be.brick_eval_volume.launches
+        base = f"http://127.0.0.1:{port}"
+        state = json.loads(urllib.request.urlopen(
+            base + "/state.json", timeout=30).read())
+        body = urllib.request.urlopen(base + "/frame", timeout=30).read()
+    finally:
+        slam.close()
+    H, W = slam.dataset.H, slam.dataset.W
+    render_hw = (-(-H // 8), -(-W // 8))
+    input_hw = (-(-H // 2), -(-W // 2))
+    want = [render_hw if i % LIVE_VIZ["live_render_every"] == 0 else
+            input_hw for i in range(1, LIVE_FRAMES)
+            if i % LIVE_VIZ["live_every"] == 0]
+    dims = image_dims(body)
+    print(f"[live] {os.path.relpath(LIVE, ROOT)} + viz {LIVE_VIZ}: "
+          f"frames={out['frames']} ate_rmse_cm={out['ate_rmse_cm']} "
+          f"launches={{'brick_eval': {launches}}} state frame "
+          f"{state['frame']}, trajectory {len(state['est'])} poses, extra "
+          f"{state['extra']}; published {shapes}; /frame "
+          f"{body[:2]!r} {dims}", flush=True)
+    if launches != int(cfg["RO"]["particle_iter_lens"]) * \
+            out["tracked_frames"]:
+        fail(f"live: brick_eval launched {launches} times")
+    if (state["frame"] != LIVE_FRAMES - 1 or len(state["est"]) != LIVE_FRAMES
+            or state["extra"].get("status") != "finished"):
+        fail(f"live: state {state['frame']} with {len(state['est'])} poses")
+    if shapes != want:
+        fail(f"live: published frames {shapes}, expected {want}")
+    if dims not in (render_hw, input_hw):
+        fail(f"live: /frame decodes to {dims}")
+    try:
+        urllib.request.urlopen(base + "/state.json", timeout=10)
+        fail("live: the viewer still answers after close()")
+    except urllib.error.URLError:
+        pass
+    if slam.viewer is not None:
+        fail("live: close() kept the viewer")
+    return launches
+
+
 def main():
     import torch
 
@@ -1409,6 +1733,9 @@ def main():
               "remixfusion_tpu_torch package is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.ops import hash_enc as he
+
     wall = {}
     t0 = time.time()
     phase_build()
@@ -1425,6 +1752,13 @@ def main():
     t0 = time.time()
     brick["mode_checks"] = phase_mode_kernels(torch, slam, out_a["frames"])
     wall["kernel brick and gather modes"] = time.time() - t0
+    t0 = time.time()
+    be.brick_eval_volume.launches = 0
+    he.hash_table_grad.launches = 0
+    phase_render(torch, slam, out_a)
+    render_launches = {"brick_eval": be.brick_eval_volume.launches,
+                       "hash_table_grad": he.hash_table_grad.launches}
+    wall["render"] = time.time() - t0
     del slam
     torch.cuda.empty_cache()
 
@@ -1506,6 +1840,14 @@ def main():
         del slam
         torch.cuda.empty_cache()
 
+    t0 = time.time()
+    launches_re = phase_render_eval(torch)
+    wall["render eval"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    launches_live = phase_live(torch)
+    wall["live"] = time.time() - t0
+
     brick["launches"] = launches_a["brick_eval"]
     brick["launches_by_slice"] = {"A": launches_a["brick_eval"],
                                   "B": launches_b["brick_eval"],
@@ -1516,14 +1858,18 @@ def main():
                                       launches_r["brick_eval"],
                                   "gather": launches_g["brick_eval"],
                                   **{k: v["brick_eval"]
-                                     for k, v in mode_launches.items()}}
+                                     for k, v in mode_launches.items()},
+                                  "render": render_launches["brick_eval"],
+                                  "render eval": launches_re,
+                                  "live": launches_live}
     hashk["launches"] = launches_b["hash_table_grad"]
     hashk["launches_by_slice"] = {
         "A": launches_a["hash_table_grad"], "B": launches_b["hash_table_grad"],
         "corridor": launches_c["hash_table_grad"],
         "corridor resumed": launches_r["hash_table_grad"],
         "gather": launches_g["hash_table_grad"],
-        **{k: v["hash_table_grad"] for k, v in mode_launches.items()}}
+        **{k: v["hash_table_grad"] for k, v in mode_launches.items()},
+        "render": render_launches["hash_table_grad"]}
     print(json.dumps({"phase_wall_s": wall}), flush=True)
     print(json.dumps({"kernels": [brick, hashk]}), flush=True)
     print(card_line(), flush=True)

@@ -32,7 +32,14 @@ Present slices: the online SLAM loop of RemixFusionTorch —
     'synthetic_large'), Kinect-class sensor noise (utils/noise.py,
     data.synthetic.sensor_noise) and mid-run resume (mapping.state_every
     writes resume.npz; RemixFusionTorch.load_state then
-    run(resume=True), or run_torch.py --resume).
+    run(resume=True), or run_torch.py --resume);
+  - rendering and evaluation: render_frame / render_img (the mesh.vis
+    comparison figure and ATE line), tools/rendering_eval with the image
+    metrics (utils/metrics.py: PSNR, SSIM, the random-feature proxy;
+    utils/lpips.py: LPIPS-AlexNet from an npz), the figures drawn by
+    utils/plot.py, and the tools: core/traj.py, tools/eval_ate's
+    pose_evaluation, tools/live_viewer.py (viz.live), tools/viz.py,
+    tools/rgb2video.py.
 """
 
 from __future__ import annotations

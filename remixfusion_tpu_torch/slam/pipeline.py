@@ -33,7 +33,19 @@ run.py, mp_slam/tracker.py, mp_slam/mapper.py:874-950), on one device:
     states, the moving volume with its bounds history, the keyframe ray
     store, the two torch.Generators); load_state restores it into a fresh
     pipeline of the same config and run(resume=True) continues after the
-    saved frame.
+    saved frame;
+  - rendering: render_frame renders a full RGB-D frame from the scene
+    model (chunks of _RENDER_CHUNK rays through scene_rep.render_rays,
+    depth-guided when a target depth is given, the perturbation draws from
+    the mapping generator as JAX draws them from its key counter);
+    render_img writes the 2x3 render-vs-GT comparison (mesh.render_img, at
+    every mesh.vis frame with an ATE line and trajectory plot appended to
+    tracking_result.txt); tools/rendering_eval scores a checkpoint's
+    renders;
+  - the live viewer (viz.live): tools/live_viewer's HTTP page, fed after
+    every viz.live_every-th tracked frame from the harvested frontier
+    (with a gap-8 render every viz.live_render_every frames), and the
+    final trajectory at finalize.
 
 Schedule (single-threaded, same decisions as the JAX pipeline): frame i's
 tracked pose is harvested `tracking.harvest_depth` frames later; frame i
@@ -67,16 +79,24 @@ from remixfusion_tpu_torch.mapping.mapper import Mapper
 from remixfusion_tpu_torch.models.encodings import HashGridEncoding
 from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
 from remixfusion_tpu_torch.tools.cull_mesh import cull_one_mesh
-from remixfusion_tpu_torch.tools.eval_ate import evaluate_ate
+from remixfusion_tpu_torch.tools.eval_ate import evaluate_ate, \
+    pose_evaluation
 from remixfusion_tpu_torch.tracking.rotracker import ROTracker, check_modes
 from remixfusion_tpu_torch.tracking.volume import MovingVolume
+from remixfusion_tpu_torch.utils import plot
 from remixfusion_tpu_torch.utils.convert import load_scene_numpy, \
     scene_to_numpy
+from remixfusion_tpu_torch.utils.imageio import write_png
 from remixfusion_tpu_torch.utils.mesh import extract_mesh
 from remixfusion_tpu_torch.utils.meshio import write_ply_mesh
 
 DEPTH_SCALE = 1000.0  # sensor-native depth quantization (mm)
 MAX_DEPTH = 65.535    # u16 ceiling in meters
+# rays per render_rays call of render_frame (a short frame is one chunk of
+# its own size). On an H100 a 640x480 frame renders in the same time at
+# 16,384 to 65,536 rays a chunk, and a 320x240 frame pads least at 16,384
+# (scripts/render_profile.py)
+_RENDER_CHUNK = 16384
 
 # first-frame pose of the 'Largeindoor' and 'uhumans' sequences (reference
 # mapper.py:311-321, ROtracker.py:76-80)
@@ -145,9 +165,6 @@ class RemixFusionTorch:
         # are built
         check_modes(config)
         vcfg = config["volume"]
-        if config["mesh"].get("render_img"):
-            raise NotImplementedError(
-                "mesh.render_img (render-vs-GT images) is not ported")
         self.update_cam()
         self.dataset = get_dataset(config)
         n_frames = self.dataset.num_frames
@@ -256,6 +273,20 @@ class RemixFusionTorch:
         self._frames = {}
         self.out_dir = os.path.join(config["data"]["output"],
                                     config["data"]["exp_name"])
+
+        # live HTTP viewer (viz.live: 0 off, 1 any free port, else the
+        # port); viz.live_every: state and frame publish stride;
+        # viz.live_render_every: gap-8 render stride (0: the input frame)
+        viz = config.get("viz") or {}
+        self.viewer = None
+        self._live_every = int(viz.get("live_every", 2))
+        self._live_render_every = int(viz.get("live_render_every", 0))
+        self._live_clock = None
+        live = int(viz.get("live", 0) or 0)
+        if live:
+            from remixfusion_tpu_torch.tools.live_viewer import LiveViewer
+            self.viewer = LiveViewer(port=0 if live == 1 else live)
+            print(f"live viewer: http://localhost:{self.viewer.port}/")
 
     # --------------------------------------------------------------- setup
 
@@ -631,17 +662,27 @@ class RemixFusionTorch:
         self._mesh_snapshots()
 
     def _mesh_snapshots(self):
-        """Mesh snapshots after a round (reference mapper.py:909-921):
-        video.save every video.save_freq frames at 7.5 cm; mesh.vis every
-        mesh.vis frames at mesh.voxel_eval unless mesh.only_final."""
+        """Snapshots after a round (reference mapper.py:909-928): video.save
+        every video.save_freq frames, a mesh at 7.5 cm; every mesh.vis
+        frames a mesh at mesh.voxel_eval unless mesh.only_final, the
+        render-vs-GT figure when mesh.render_img, and the ATE of the
+        trajectory so far appended to tracking_result.txt with its plot."""
         video = self.config.get("video", {})
         if video.get("save") and self.mapping_idx % video.get(
                 "save_freq", 20) == 0:
             self.save_mesh(self.mapping_idx, voxel_size=0.075)
         mesh = self.config["mesh"]
-        if (mesh["vis"] and self.mapping_idx % mesh["vis"] == 0
-                and self.mapping_idx and not mesh["only_final"]):
-            self.save_mesh(self.mapping_idx, voxel_size=mesh["voxel_eval"])
+        idx = self.mapping_idx
+        if not (mesh["vis"] and idx % mesh["vis"] == 0 and idx):
+            return
+        if not mesh["only_final"]:
+            self.save_mesh(idx, voxel_size=mesh["voxel_eval"])
+        if mesh.get("render_img"):
+            batch = self._get_frame(idx)
+            self.render_img(idx, batch["depth"], batch["rgb"],
+                            self.est_c2w_data[idx], batch["direction"])
+        pose_evaluation(self.pose_gt, self.convert_relative_pose(idx), 1,
+                        self.out_dir, idx)
 
     def _due_rounds(self, n: int):
         """Run the mapping rounds the harvested frontier has unlocked
@@ -654,10 +695,48 @@ class RemixFusionTorch:
             self.mapping_round(cur)
 
     def step(self, frame_id: int, n: int):
-        """One frame of the online loop: track + fuse frame_id, then the
-        mapping rounds that became due (rounds stop at frame n)."""
-        self.track_frame(frame_id, self._get_frame(frame_id))
+        """One frame of the online loop: track + fuse frame_id, feed the
+        live viewer (viz.live), then the mapping rounds that became due
+        (rounds stop at frame n)."""
+        batch = self._get_frame(frame_id)
+        self.track_frame(frame_id, batch)
+        if self.viewer is not None:
+            self._publish_live(frame_id, batch)
         self._due_rounds(n)
+
+    def _publish_live(self, idx: int, batch):
+        """Feed the live viewer every viz.live_every frames without
+        waiting for the device: the poses up to the harvested frontier
+        (at most ~400 of them), the input frame at stride 2 or, every
+        viz.live_render_every frames, a gap-8 render at the frontier's
+        pose. A failure is printed; the run goes on (JAX _publish_live)."""
+        if idx % self._live_every:
+            return
+        try:
+            frontier = (self._last_harvested[-1][0]
+                        if self._last_harvested else 0)
+            step = max(1, (frontier + 1) // 400)
+            ids = range(0, frontier + 1, step)
+            est = np.stack([self._composed(i)[:3, 3] for i in ids])
+            now = time.perf_counter()
+            last = self._live_clock
+            fps = ((idx - last[0]) / max(now - last[1], 1e-9)
+                   if last else 0.0)
+            self._live_clock = (idx, now)
+            self.viewer.publish_state(
+                frame=idx, n=self.dataset.num_frames, fps=fps, est=est,
+                gt=self.pose_gt[:frontier + 1:step, :3, 3],
+                extra={"mapped_to": self.mapping_idx,
+                       "keyframes": self.mapping_idx // self._kf_every + 1})
+            if (self._live_render_every
+                    and idx % self._live_render_every == 0 and frontier):
+                rgb, _ = self.render_frame(self._composed(frontier),
+                                           batch["direction"], gap=8)
+                self.viewer.publish_frame(rgb)
+            else:
+                self.viewer.publish_frame(np.asarray(batch["rgb"])[::2, ::2])
+        except Exception as e:  # the viewer must never end the run
+            print("live viewer publish failed:", e)
 
     # ---------------------------------------------------------- main loop
 
@@ -672,16 +751,34 @@ class RemixFusionTorch:
             if i not in self._frames:
                 self._frames[i] = self.dataset[i]
 
+    def _composed(self, i: int) -> np.ndarray:
+        """Frame i's pose: a keyframe's as estimated (BA-refined), another
+        frame's composed onto its keyframe."""
+        if i % self._kf_every == 0:
+            return self.est_c2w_data[i]
+        kf = (i // self._kf_every) * self._kf_every
+        return self.est_c2w_data_rel[i] @ self.est_c2w_data[kf]
+
     def trajectory(self, n: int) -> np.ndarray:
-        """[n, 4, 4] poses: keyframes as estimated (BA-refined), other
-        frames composed onto their keyframe (reference mapper.py:580-624)."""
+        """[n, 4, 4] poses of frames [0, n) (reference mapper.py:580-624)."""
         out = np.zeros((n, 4, 4), np.float32)
         for i in range(n):
-            if i % self._kf_every == 0:
-                out[i] = self.est_c2w_data[i]
-            else:
-                kf = (i // self._kf_every) * self._kf_every
-                out[i] = self.est_c2w_data_rel[i] @ self.est_c2w_data[kf]
+            out[i] = self._composed(i)
+        return out
+
+    def convert_relative_pose(self, idx=None) -> dict:
+        """{frame: pose} of frames [0, idx] (default: every frame of the
+        dataset) after harvesting the pending tracked poses (JAX
+        convert_relative_pose)."""
+        self._harvest()
+        end = idx + 1 if idx is not None else len(self.est_c2w_data)
+        return dict(enumerate(self.trajectory(end)))
+
+    def convert_relative_pose_npy(self, idx=None) -> np.ndarray:
+        """convert_relative_pose as [len(dataset), 4, 4], zero past idx."""
+        out = np.zeros((len(self.dataset), 4, 4), np.float32)
+        for i, p in self.convert_relative_pose(idx).items():
+            out[i] = p
         return out
 
     def run(self, max_frames: int | None = None, warmup: int = 5,
@@ -772,20 +869,20 @@ class RemixFusionTorch:
                              // int(self.config["mapping"]["iters"]))):
                 self.global_mapping(batch, self.mapping_idx, n_cur=0)
         poses = self.trajectory(n)
-        gt = {float(i): self.pose_gt[i] for i in range(n)}
-        full = evaluate_ate(gt, {float(i): poses[i] for i in range(n)})
-        ro = evaluate_ate(gt, {float(i): self.RO_c2w_data[i]
-                               for i in range(n)})
         np.save(os.path.join(self.out_dir, "all_poses.npy"), poses)
         np.save(os.path.join(self.out_dir, "ro_poses.npy"),
                 self.RO_c2w_data[:n])
-        line = (f"{n - 1} ate-rmse(cm): {full['rmse'] * 100:.4f} "
-                f"mean: {full['mean'] * 100:.4f} "
-                f"median: {full['median'] * 100:.4f} "
-                f"pairs: {full['compared_pose_pairs']}\n")
-        with open(os.path.join(self.out_dir, "tracking_result.txt"),
-                  "a") as f:
-            f.write(line)
+        if self.viewer is not None:  # the final trajectory for the page
+            try:
+                self.viewer.publish_state(
+                    frame=n - 1, n=n, est=poses, gt=self.pose_gt[:n],
+                    extra={"status": "finished"})
+            except Exception as e:  # the viewer must never end the run
+                print("live viewer publish failed:", e)
+        full = pose_evaluation(self.pose_gt[:n], poses, 1, self.out_dir,
+                               n - 1)
+        ro = evaluate_ate({float(i): self.pose_gt[i] for i in range(n)},
+                          {float(i): self.RO_c2w_data[i] for i in range(n)})
         if self.config["mapping"]["save_ckpt"]:
             self.save_ckpt(os.path.join(self.out_dir, "checkpoint.npz"))
         info = {}
@@ -864,6 +961,86 @@ class RemixFusionTorch:
                                     depth_flag=True, remove_occlusion=True,
                                     eps=eps)
         return save_path, len(kept)
+
+    # ---------------------------------------------------------- rendering
+
+    def render_frame(self, c2w, directions, gap: int = 1, target_depth=None):
+        """Render an RGB-D frame with the scene model (reference
+        slam.py:290-344): the rays of directions[::gap, ::gap] (a ceil(H /
+        gap) x ceil(W / gap) image) from the camera centre, depth-guided
+        by target_depth[::gap, ::gap] when given, else -1 (the uniform
+        samples). Chunks of _RENDER_CHUNK rays (the last padded with rays
+        of depth -1) go through render_rays with perturbation draws from
+        the mapping generator, so a render moves later mapping draws as a
+        JAX render moves its key counter. Returns numpy (rgb [h, w, 3],
+        depth [h, w])."""
+        sub = np.asarray(directions)[::gap, ::gap]
+        h, w = sub.shape[:2]
+        dirs = sub.reshape(-1, 3)
+        c2w = np.asarray(c2w, np.float32)
+        n = len(dirs)
+        chunk = min(_RENDER_CHUNK, n)
+        n_pad = -(-n // chunk) * chunk
+        o = np.zeros((n_pad, 3), np.float32)
+        o[:n] = c2w[:3, 3]
+        d = np.zeros((n_pad, 3), np.float32)
+        d[:, 2] = 1.0
+        d[:n] = dirs @ c2w[:3, :3].T
+        td = np.full((n_pad, 1), -1.0, np.float32)
+        if target_depth is not None:
+            td[:n, 0] = np.asarray(target_depth)[::gap, ::gap].reshape(-1)
+        o, d, td = (host_to_device(a, self.device) for a in (o, d, td))
+        rgbs, depths = [], []
+        with torch.no_grad(), record_function("render.frame"):
+            for i in range(0, n_pad, chunk):
+                out = self.scene.render_rays(o[i:i + chunk], d[i:i + chunk],
+                                             td[i:i + chunk],
+                                             generator=self._gen)
+                rgbs.append(out["rgb_res_map"])
+                depths.append(out["depth_res_map"])
+            rgb = torch.cat(rgbs)[:n].reshape(h, w, 3)
+            depth = torch.cat(depths)[:n].reshape(h, w)
+        return rgb.cpu().numpy(), depth.cpu().numpy()
+
+    def render_img(self, frame_id, gt_depth, gt_rgb, cam_pose, directions,
+                   prefix=None, gap=4):
+        """The render-vs-GT comparison (reference slam.py:416-528) at
+        [::gap, ::gap]: input, rendered and residual depth (plasma, 0 to the
+        input's maximum) over input, rendered and residual colour, as
+        <out_dir>/<frame_id>[_<prefix>].png. Returns its path."""
+        color, depth = self.render_frame(cam_pose, directions, gap=gap)
+        panels, vmax = plot.comparison_panels(
+            np.asarray(gt_depth)[::gap, ::gap],
+            np.asarray(gt_rgb)[::gap, ::gap], color, depth)
+        name = f"{frame_id}_{prefix}.png" if prefix else f"{frame_id}.png"
+        out = os.path.join(self.out_dir, name)
+        os.makedirs(self.out_dir, exist_ok=True)
+        write_png(out, plot.comparison_figure(panels, vmax))
+        return out
+
+    def update_GBV(self, cur_id):
+        """Re-fuse the global grid from the keyframes before cur_id at
+        their current (BA-refined) poses, from the dataset's frames
+        (reference mapper.py:523-534; not called by the online loop)."""
+        self.mapper.reset_global_volume()
+        for i in range(0, cur_id, self._kf_every):
+            batch = self.dataset[i]
+            c2w = self.est_c2w_data[i]
+            self.mapper.integrate_keyframe(
+                host_to_device(np.asarray(batch["depth"], np.float32),
+                               self.device),
+                host_to_device(np.asarray(batch["rgb"], np.float32),
+                               self.device),
+                self.K_dev, host_to_device(c2w, self.device),
+                self.bound_dev, host_depth=batch["depth"], host_c2w=c2w,
+                K_np=self.K)
+
+    def close(self):
+        """Stop the live viewer and release its port; safe to call more
+        than once."""
+        if self.viewer is not None:
+            self.viewer.stop()
+            self.viewer = None
 
     def _model_state_dict(self):
         """The model fields of the checkpoint, under the JAX package's

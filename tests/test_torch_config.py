@@ -23,8 +23,12 @@ CONFIGS = sorted(os.path.relpath(p, ROOT) for p in
 PORT_FILES = sorted(
     glob.glob(os.path.join(ROOT, "remixfusion_tpu_torch", "**", "*.py"),
               recursive=True)
-    + [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT,
-                                                         "run_torch.py")])
+    + [os.path.join(ROOT, f) for f in ("chip_smoke.py", "run_torch.py",
+                                       "rendering_eval_torch.py")])
+# the modules of the rendering and tools slice, each checked by name below
+RENDER_SLICE = ("utils/metrics.py", "utils/lpips.py", "utils/plot.py",
+                "core/traj.py", "tools/eval_ate.py", "tools/rendering_eval.py",
+                "tools/live_viewer.py", "tools/viz.py", "tools/rgb2video.py")
 
 
 @pytest.mark.parametrize("path", CONFIGS)
@@ -54,6 +58,8 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(PORT_FILES) > 10
+    for rel in RENDER_SLICE:
+        assert os.path.join(ROOT, "remixfusion_tpu_torch", rel) in PORT_FILES
     for path in PORT_FILES:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -62,8 +68,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_imports_no_image_library_at_module_level():
-    """OpenCV and PIL may be missing on the card's host: the port imports
-    cv2 only where a JPEG is read or written, and PIL nowhere."""
+    """OpenCV, PIL, imageio and matplotlib may be missing on the card's
+    host: the port imports cv2 only where a JPEG is read or written,
+    imageio only where a frame or video may be encoded with it, PIL only in
+    tools/rgb2video's GIF writer (inside the function), and matplotlib
+    nowhere."""
+    gif_writer = os.path.join(ROOT, "remixfusion_tpu_torch", "tools",
+                              "rgb2video.py")
     for path in PORT_FILES:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -73,22 +84,32 @@ def test_port_imports_no_image_library_at_module_level():
                      [node.module or ""]
                      if isinstance(node, ast.ImportFrom) else [])
             for mod in names:
-                assert mod.split(".")[0] not in ("cv2", "PIL"), (path, mod)
+                assert mod.split(".")[0] not in ("cv2", "PIL", "imageio",
+                                                 "matplotlib"), (path, mod)
         for mod in _imports(path):
-            assert mod.split(".")[0] != "PIL", (path, mod)
+            assert mod.split(".")[0] != "matplotlib", (path, mod)
+            assert mod.split(".")[0] != "PIL" or path == gif_writer, (path,
+                                                                     mod)
 
 
 def test_port_runs_without_jax_or_pyyaml():
-    """Import every port module and load a config in a process where jax,
-    the JAX package, yaml, cv2 and PIL cannot be imported."""
+    """Import every port module (the rendering slice's by name too) and
+    load a config in a process where jax, the JAX package, yaml, cv2, PIL,
+    imageio and matplotlib cannot be imported."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'jaxlib', 'yaml', 'remixfusion_tpu', 'cv2',\n"
-        "          'PIL'):\n"
+        "          'PIL', 'imageio', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         "import remixfusion_tpu_torch as p\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        f"for rel in {RENDER_SLICE!r}:\n"
+        "    name = 'remixfusion_tpu_torch.' + rel[:-3].replace('/', '.')\n"
+        "    assert name in names, name\n"
+        "import rendering_eval_torch\n"
         "from remixfusion_tpu_torch.config import load_config\n"
         "cfg = load_config('configs/Synthetic/synthetic_bench.yaml')\n"
         "assert cfg['RO']['eval_mode'] == 'pallas'\n"

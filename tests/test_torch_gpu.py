@@ -6,7 +6,9 @@ host without JAX, where tests/conftest.py (which imports JAX) cannot load:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Each test holds a hand-written kernel against its plain PyTorch version on
-the card, with the tolerance of the CPU parity tests."""
+the card, or a plain path on the card (mesh queries, rendering, the image
+metrics, resume) against the same path on the CPU, with the tolerance of
+the CPU parity tests."""
 
 import numpy as np
 import pytest
@@ -314,16 +316,14 @@ def test_hash_table_grad_ray_ordered_matches_plain(cuda_device, n_rays,
     assert torch.equal(out == 0, ref == 0)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("enc", ["CPGrid", "HashGrid"])
-def test_extract_mesh_on_card_matches_cpu(cuda_device, enc, tmp_path):
-    """extract_mesh of one scene on the card and on the CPU: the SDF grid
-    within 1e-4 (no TF32 or other device-only numerics in the queries),
-    the same weight mask, vertex and face counts within 1%."""
+def sphere_scene(enc, device):
+    """A scene on the CPU and its copy on `device`: random decoders over a
+    global grid holding a 0.9 m sphere's truncated SDF and smooth colours
+    (weights on the half x < 2.55), with the render settings of a tiny
+    config. Returns (config, bound, cpu scene, device scene)."""
     from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
     from remixfusion_tpu_torch.utils.convert import scene_from_numpy, \
         scene_to_numpy
-    from remixfusion_tpu_torch.utils.mesh import extract_mesh
 
     cfg = {
         "grid": {"enc": enc, "hash_size": 16, "voxel_sdf": 0.02},
@@ -332,7 +332,9 @@ def test_extract_mesh_on_card_matches_cpu(cuda_device, enc, tmp_path):
                     "num_layers_color": 2, "hidden_dim_color": 32},
         "mapping": {"pose_scale": 0.01},
         "globalV": {"base_resolution": 64},
-        "training": {"c_trunc": 0.25, "trunc": 0.05},
+        "training": {"c_trunc": 0.25, "trunc": 0.05, "n_range_d": 21,
+                     "n_samples_d": 11, "range_d": 0.2, "perturb": 1},
+        "cam": {"near": 0.0, "far": 5.0},
         "data": {"sc_factor": 1, "translation": 0},
     }
     bound = np.array([[0.0, 4.0]] * 3, np.float32)
@@ -352,8 +354,19 @@ def test_extract_mesh_on_card_matches_cpu(cuda_device, enc, tmp_path):
         cpu.gbw.copy_(torch.tensor(((w[..., 0] < 2.55)
                                     * (1 + rng.random((R, R, R))))))
     params, buffers = scene_to_numpy(cpu)
-    card = scene_from_numpy(cfg, bound, 16, params, buffers,
-                            device=cuda_device)
+    card = scene_from_numpy(cfg, bound, 16, params, buffers, device=device)
+    return cfg, bound, cpu, card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", ["CPGrid", "HashGrid"])
+def test_extract_mesh_on_card_matches_cpu(cuda_device, enc, tmp_path):
+    """extract_mesh of one scene on the card and on the CPU: the SDF grid
+    within 1e-4 (no TF32 or other device-only numerics in the queries),
+    the same weight mask, vertex and face counts within 1%."""
+    from remixfusion_tpu_torch.utils.mesh import extract_mesh
+
+    cfg, bound, cpu, card = sphere_scene(enc, cuda_device)
     out = {}
     for name, scene in (("cpu", cpu), ("card", card)):
         info = {}
@@ -417,3 +430,64 @@ def test_resume_on_card_is_bitwise(cuda_device, tmp_path):
     assert out["tracked_frames"] == 5
     assert np.isfinite(slam2.est_c2w_data).all()
     assert out["ate_rmse_cm"] < 10.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", ["CPGrid", "HashGrid"])
+def test_render_rays_on_card_match_cpu(cuda_device, enc):
+    """4,096 rays from inside the room towards the sphere, half of them
+    depth-guided, rendered with the same perturbation draws on the card and
+    on the CPU: rgb and depth within 1e-4."""
+    _, _, cpu, card = sphere_scene(enc, cuda_device)
+    rng = np.random.default_rng(5)
+    n = 4096
+    d = rng.normal(0, 0.25, (n, 3)) + (0.0, 0.05, 1.0)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = np.tile(np.float32([2.0, 2.0, 0.2]), (n, 1))
+    td = np.where(rng.random(n) < 0.5, rng.uniform(0.6, 1.4, n), -1.0)
+    td = td.astype(np.float32)[:, None]
+    u = torch.rand(cpu.z_vals_shape(n), generator=torch.Generator()
+                   .manual_seed(6))
+    out = {}
+    for name, scene, dev in (("cpu", cpu, "cpu"), ("card", card,
+                                                    cuda_device)):
+        with torch.no_grad():
+            r = scene.render_rays(*(torch.from_numpy(a).to(dev)
+                                    for a in (o, d, td)), u=u.to(dev))
+        out[name] = (r["rgb_res_map"].cpu().numpy(),
+                     r["depth_res_map"].cpu().numpy())
+    (rgb_c, dep_c), (rgb_g, dep_g) = out["cpu"], out["card"]
+    assert dep_c.max() > 0.5 and np.isfinite(rgb_c).all()
+    assert np.abs(rgb_g - rgb_c).max() <= 1e-4
+    assert np.abs(dep_g - dep_c).max() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_image_metrics_on_card_match_cpu(cuda_device):
+    """SSIM and the random-feature proxy (float64) and LPIPS with random
+    weights of the converter's shapes (float32, no TF32) on the card and
+    on the CPU."""
+    from remixfusion_tpu_torch.utils import lpips, metrics
+
+    rng = np.random.default_rng(7)
+    gt = rng.uniform(0, 1, (96, 128, 3))
+    gt[10:30, 20:60] = 0.0
+    img = np.clip(gt + rng.normal(0, 0.08, gt.shape), 0, 1)
+    map_c, s_c = metrics.ssim(img, gt, device="cpu")
+    map_g, s_g = metrics.ssim(img, gt, device=cuda_device)
+    assert np.abs(map_g - map_c).max() <= 1e-9 and abs(s_g - s_c) <= 1e-9
+    rf_c = metrics.random_feature_perceptual(img, gt, device="cpu")
+    rf_g = metrics.random_feature_perceptual(img, gt, device=cuda_device)
+    assert abs(rf_g - rf_c) <= 1e-8 * rf_c
+    params, in_ch = {}, 3
+    for i, (out_ch, k, _s, _p) in enumerate(lpips.CONVS):
+        params[f"conv{i}_w"] = rng.normal(
+            0, 0.05, (out_ch, in_ch, k, k)).astype(np.float32)
+        params[f"conv{i}_b"] = rng.normal(0, 0.01, out_ch).astype(np.float32)
+        params[f"lin{i}_w"] = np.abs(rng.normal(0, 1, out_ch)).astype(
+            np.float32)
+        in_ch = out_ch
+    lp_c = lpips.lpips(img, gt, device="cpu", net=lpips.LPIPS(params))
+    lp_g = lpips.lpips(img, gt, device=cuda_device,
+                       net=lpips.LPIPS(params).to(cuda_device))
+    assert lp_c > 1e-3 and abs(lp_g - lp_c) <= 1e-4 * lp_c
