@@ -51,6 +51,44 @@ prints no result line):
      rgb and depth within RENDER_TOL; render_img of frame 50 read back as a
      2 x 3 grid of 120x160 panels. Launch counts are zeroed before and read
      after (rendering launches no kernel of the main path);
+  3c. sharded (after 3b, on slice A's finished pipeline): the scale-out
+     path (remixfusion_tpu_torch/parallel/, ROTracker(group=...)) in two
+     worlds on the one card, SHARDED_WORLDS: 2 ranks over gloo (NCCL
+     refuses two ranks on one card: a 2-rank NCCL world is started first
+     and must fail with "Duplicate GPU detected") and 1 rank over NCCL.
+     Each rank (parallel/launch.spawn, file rendezvous, a time limit)
+     zeroes its launch counts, then: candidate-sharded tier costs of slice
+     A's last frame (a rank's slice of 10240 / 3072 / 1024 candidates, the
+     identity column ahead on every rank but the first) and do_tracking
+     from the previous RO pose, and again with RO.sample_range SHIFT_RANGE
+     and the ray-shift generator seeded SHIFT_SEED + rank (the tracker
+     broadcasts rank 0's generator state before the draw); the
+     slab-sharded fusion of that frame into
+     the 200^3 grid; SHARDED_TIMED_STEPS data-parallel map steps (SGD) and
+     as many grid-sharded ones on bench_hashgrid.yaml's scene (seed 0,
+     frame 0 fused, mapping.sample rays of frame 0, a seeded stratified
+     draw; the grid-sharded scene holds no grid); the interleaved dataflow
+     (parallel/dryrun.interleaved_dataflow) over SHARDED_FRAMES frames of
+     synthetic_bench.yaml with a DP map step every SHARDED_MAP_EVERY. Held
+     against one process on the card: the gathered costs bitwise the
+     single-process kernel's (a rank's slice launches with the whole
+     table's pixel split, brick_eval_volume's split_for) and within phase
+     3's tolerance of the plain version's, the same on every rank; the
+     poses within POSE_TOL, the shifted one of the single process's from
+     SHIFT_SEED (and more than POSE_TOL off its pose from SHIFT_SEED + 1); the concatenated slabs and the slab query
+     bitwise integrate_global's grid and query_gbv; the first map step's
+     parameters within STEP_RTOL / STEP_ATOL (tests/test_sharding.py's),
+     each parameter's update within STEP_UPDATE_REL of the largest entry
+     of the single-process update (a step moves the hash table by ~1e-8,
+     far inside STEP_ATOL), and its loss within 1e-4; each rank's brick_eval launched 20 times
+     per tracked frame and hash_table_grad once per map step, and
+     hash_table_grad on the rank's own inputs within phase 5's tolerance
+     of its plain version; the dataflow's RO-only ATE below 2 cm. Printed:
+     the backends and why, the per-rank shapes, ms per map step against
+     one process (the steps after the first), ms per dataflow frame and
+     the collective bytes per step. Then brick_eval at a rank's slice
+     (C/2 + 1 candidates) and hash_table_grad at a rank's half of the
+     batch, checked and timed as in phases 3 and 5;
   4. slice B: configs/Synthetic/bench_hashgrid.yaml (HashGrid residual
      field, 16 levels, 2^16 hashed) the same way: brick_eval launched 20
      times per tracked frame, hash_table_grad twice per map iteration (the
@@ -273,6 +311,19 @@ RENDER_BARS = {"psnr": (">=", 22.0), "ssim": (">=", 0.85),
 LIVE = os.path.join(SYN, "verify_small.yaml")
 LIVE_FRAMES = 12
 LIVE_VIZ = {"live": 1, "live_every": 2, "live_render_every": 4}
+# [sharded]: the worlds (ranks on the one card; backend chosen by
+# parallel/dryrun.pick_backend), the dataflow's frames and map period, a
+# world's time limit, the map step's parameter tolerance (rtol, atol of
+# tests/test_sharding.py), the pose tolerance and the timed extra map steps
+SHARDED_WORLDS = (2, 1)
+SHARDED_FRAMES = 10
+SHARDED_MAP_EVERY = 5
+SHARDED_TIMEOUT_S = 420
+STEP_RTOL, STEP_ATOL = 2e-3, 2e-5
+STEP_UPDATE_REL = 1e-3
+POSE_TOL = 1e-5
+SHIFT_RANGE, SHIFT_SEED = 0.1, 100
+SHARDED_TIMED_STEPS = 6
 
 
 def fail(msg):
@@ -542,11 +593,12 @@ def tier_cases(torch, slam, frames):
     return cases
 
 
-def check_brick_case(torch, args, phase):
+def check_brick_case(torch, args, phase, split_for=None):
     """brick_eval_volume against its plain version on one tier's inputs,
     in both interpolation modes: same bits on a second call, the same
     guard positions, max |d| < TOL_MAX and mean < TOL_MEAN; then its
-    device and call times, the plain version's and the bound."""
+    device and call times, the plain version's and the bound. split_for:
+    brick_eval_volume's (a rank's slice of a table)."""
     from remixfusion_tpu_torch.ops import brick_eval as be
 
     params, pix, base, tsdf, layout, table = args
@@ -554,8 +606,9 @@ def check_brick_case(torch, args, phase):
     windows = be.fetch_windows(tsdf, layout, base)
     shapes = []
     for interp in ("nearest", "trilinear"):
-        got = be.brick_eval_volume(*args, interp=interp)
-        again = be.brick_eval_volume(*args, interp=interp)
+        got = be.brick_eval_volume(*args, interp=interp, split_for=split_for)
+        again = be.brick_eval_volume(*args, interp=interp,
+                                     split_for=split_for)
         ref = be.brick_eval_volume_reference(*args, interp=interp)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
@@ -572,7 +625,7 @@ def check_brick_case(torch, args, phase):
             fail(f"brick_eval disagrees with its plain version at C={C} "
                  f"P={P} {interp} ({phase}): max {err_max} mean {err_mean}")
         t = measure(torch, lambda: be.brick_eval_volume(
-            *args, interp=interp), 200, 20)
+            *args, interp=interp, split_for=split_for), 200, 20)
         p_ms = time_cuda(torch, lambda: be.brick_eval_volume_reference(
             *args, interp=interp), 20, 3)
         reached = int(be.pair_terms(params, pix, windows, table,
@@ -739,23 +792,9 @@ def slice_b_captured(torch):
     """phase_slice of slice B, keeping the inputs of its last two
     table-gradient calls (its last map step: render points, then smoothness
     points)."""
-    from collections import deque
-
-    from remixfusion_tpu_torch.ops import hash_enc as he
-
-    captured = deque(maxlen=2)
-    kernel = he.hash_table_grad
-
-    def capture(enc, x, g, n_rows):
-        captured.append((enc, x, g, n_rows))
-        return kernel(enc, x, g, n_rows)
-
-    he.hash_table_grad = capture
-    try:
+    with HashCalls(keep=2) as hc:
         slam, out, launches = phase_slice(torch, "B")
-    finally:
-        he.hash_table_grad = kernel
-    return slam, out, launches, list(captured)
+    return slam, out, launches, list(hc.calls)
 
 
 def phase_real(torch, label):
@@ -809,11 +848,11 @@ def phase_real(torch, label):
     captured = []
     kernel = rotracker.brick_eval_volume
 
-    def capture(params, pix, base, tsdf, layout_, table, interp):
+    def capture(params, pix, base, tsdf, layout_, table, interp, split_for):
         captured.append((params, pix, base, tsdf, layout_, table))
         del captured[:-iters]
         return kernel(params, pix, base, tsdf, layout_, table,
-                      interp=interp)
+                      interp=interp, split_for=split_for)
 
     rotracker.brick_eval_volume = capture
     try:
@@ -976,14 +1015,15 @@ def phase_corridor(torch):
 
     kernel = rotracker.brick_eval_volume
 
-    def capture(params, pix, base, tsdf, layout, table, interp):
+    def capture(params, pix, base, tsdf, layout, table, interp, split_for):
         if "frame" in armed and len(captured) < iters:
             if "tsdf" not in armed:
                 armed["tsdf"] = tsdf.clone()
                 armed["origin"] = slam.mv.vol_bnds[:, 0].copy()
             captured.append((params.clone(), pix.clone(), base.clone(),
                              armed["tsdf"], layout, table))
-        return kernel(params, pix, base, tsdf, layout, table, interp=interp)
+        return kernel(params, pix, base, tsdf, layout, table, interp=interp,
+                      split_for=split_for)
 
     slam.save_state = keep_at_save
     slam.mv.check_move = arm_on_recentre
@@ -1722,6 +1762,587 @@ def phase_live(torch):
     return launches
 
 
+def frame_inputs(torch, ds, i, c2w=None):
+    """Frame i as CPU tensors (quantized depth [H, W], rgb [H, W, 3] in
+    [0, 1], K, pose: the dataset's, or c2w)."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.slam.pipeline import quantize_depth
+
+    f = ds[i]
+    pose = f["c2w"] if c2w is None else c2w
+    return {"depth": torch.tensor(quantize_depth(f["depth"])),
+            "rgb": torch.tensor(np.asarray(f["rgb"], np.float32)),
+            "K": torch.tensor(np.asarray(ds.K(), np.float32)),
+            "c2w": torch.tensor(np.asarray(pose, np.float32))}
+
+
+def map_scene(torch, cfg, f0, device, comm=None, whole=True):
+    """The map steps' scene: SceneRepresentation of cfg from seed 0 with
+    frame f0 fused into the whole grid (whole), or a scene without a grid
+    reading the ranks' slabs, f0 fused into this rank's. Returns (scene,
+    slab); the slab (a SlabGrid) is None for the whole grid."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
+    from remixfusion_tpu_torch.ops import tsdf as tsdf_ops
+    from remixfusion_tpu_torch.parallel import sharding
+    from remixfusion_tpu_torch.parallel.dryrun import NUM_KF
+
+    bound = np.asarray(cfg["mapping"]["bound"], np.float32)
+    bound_t = torch.as_tensor(bound, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    trunc = cfg["training"]["c_trunc"]
+    f = {k: v.to(device) for k, v in f0.items()}
+    args = (f["depth"], f["rgb"], f["K"], f["c2w"], bound_t)
+    if whole:
+        scene = SceneRepresentation(cfg, bound, NUM_KF, device=device,
+                                    generator=gen)
+        tsdf_ops.integrate_global(scene.gbv, scene.gbw, *args,
+                                  trunc_margin=trunc)
+        return scene, None
+    R = int(cfg["globalV"]["base_resolution"])
+    slab = sharding.SlabGrid(R, comm, device)
+    sharding.sharded_fuse_frame(comm, R, trunc, *f["depth"].shape)(
+        slab.gbv, slab.gbw, *args)
+    scene = SceneRepresentation(cfg, bound, NUM_KF, device=device,
+                                generator=gen, grid_rows=slab.rows)
+    return scene, slab
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class HashCalls:
+    """Within the block, the inputs (enc, x, grad_out, n_rows) of every
+    hash_table_grad call, or of the last `keep`, are kept in `calls` and
+    the kernel is launched as usual. The kernel counts its launches on the
+    module's hash_table_grad, here this wrapper: `launches` holds them, and
+    they are added to the kernel's own count on leaving."""
+
+    def __init__(self, keep=None):
+        self.keep = keep
+
+    def __enter__(self):
+        from collections import deque
+
+        from remixfusion_tpu_torch.ops import hash_enc as he
+
+        self.he, self.kernel = he, he.hash_table_grad
+        self.calls = deque(maxlen=self.keep)
+
+        def capture(enc, x, g, n_rows):
+            self.calls.append((enc, x, g, n_rows))
+            return self.kernel(enc, x, g, n_rows)
+
+        capture.launches = 0
+        self.wrapper = capture
+        he.hash_table_grad = capture
+        return self
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+    def __exit__(self, *exc):
+        self.he.hash_table_grad = self.kernel
+        self.kernel.launches += self.wrapper.launches
+
+
+def timed_steps(torch, step, scene, args, n):
+    """n calls of a map step of `scene` on one batch: (the first call's
+    loss, the parameters after it as numpy, ms per call of the later calls
+    on the host clock, each ending in a synchronize)."""
+    dev = args[0].device
+    loss = float(step(*args))
+    sync(torch, dev)
+    params = {k: v.detach().cpu().numpy()
+              for k, v in scene.named_parameters()}
+    ms = []
+    for _ in range(n - 1):
+        t0 = time.perf_counter()
+        step(*args)
+        sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return loss, params, sum(ms) / len(ms)
+
+
+def shifted_pose(torch, cfg, tracker_args, state, init, depth, comm, seed):
+    """do_tracking's pose with RO.sample_range SHIFT_RANGE, the per-pixel
+    ray shift drawn from a generator seeded `seed`, on a tracker of cfg
+    otherwise (tracker_args: ROTracker's H, W, K, dims, voxel size, brick
+    layout and device)."""
+    import copy
+
+    from remixfusion_tpu_torch.tracking.rotracker import ROTracker
+
+    cfg = copy.deepcopy(cfg)
+    cfg["RO"]["sample_range"] = SHIFT_RANGE
+    tr = ROTracker(cfg, *tracker_args, group=comm)
+    gen = torch.Generator(device=tracker_args[-1]).manual_seed(seed)
+    return tr.do_tracking(state, init, depth,
+                          generator=gen).c2w.cpu().numpy()
+
+
+def nccl_probe_rank(rank, world):
+    """One all-reduce over NCCL; the error NCCL raises, or None."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        dist.all_reduce(torch.ones(1, device="cuda"))
+        torch.cuda.synchronize()
+        return None
+    except dist.DistBackendError as e:
+        return str(e)
+
+
+def sharded_setup(torch, slam, frames, out_dir, cfg_b):
+    """The [sharded] phase's inputs, saved for the ranks, and the
+    single-process references on the card: slice A's last frame (its
+    tiers' costs by the kernel and by the plain version at its RO pose,
+    do_tracking from the previous RO pose, its fusion into a fresh 200^3
+    grid) and bench_hashgrid.yaml's map step (frame 0 fused into the grid,
+    mapping.sample rays of frame 0, a seeded stratified draw)."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.ops import tsdf as tsdf_ops
+    from remixfusion_tpu_torch.parallel import sharding
+    from remixfusion_tpu_torch.parallel.dryrun import frame_rays, \
+        loss_weights
+
+    dev = slam.device
+    tr, mv, ds = slam.tracker, slam.mv, slam.dataset
+    last = frames - 1
+    fr = frame_inputs(torch, ds, last, slam.RO_c2w_data[last])
+    c2w = fr["c2w"].to(dev)
+    depth = fr["depth"].to(dev)
+    vn = tr.vertex_normal_maps(depth)
+    view = tr.track_view(mv.state.tsdf)
+    ss = tr.init_search_size()
+    refs = {"kernel": [], "plain": [], "tiers": []}
+    for cls in range(3):
+        level = tr.class_level[cls]
+        refs["kernel"].append(tr.score_tier(
+            cls, 0, level, 0, c2w[:3, :3], c2w[:3, 3], ss, vn, view,
+            mv.state.origin))
+        args = tr.tier_inputs(level, 0, c2w[:3, :3], c2w[:3, 3], ss, vn,
+                              mv.state.origin)
+        refs["tiers"].append(args + (view, tr.brick_layout,
+                                     tr.pst_t[cls][0]))
+        refs["plain"].append(be.brick_eval_volume_reference(
+            *refs["tiers"][-1], interp=tr.tsdf_interp))
+    init = slam.RO_c2w_data[last - 1]
+    refs["pose"] = tr.do_tracking(mv.state, init, depth).c2w.cpu().numpy()
+    targs = (ds.H, ds.W, ds.K(), mv.dims, mv.voxel_size, tr.brick_layout,
+             dev)
+    refs["shift_pose"], refs["shift_pose_other_seed"] = (
+        shifted_pose(torch, slam.config, targs, mv.state, init, depth, None,
+                     seed) for seed in (SHIFT_SEED, SHIFT_SEED + 1))
+    R = int(slam.config["globalV"]["base_resolution"])
+    gbv = torch.zeros((R, R, R, 4), device=dev)
+    gbv[..., 0] = 1.0
+    gbw = torch.zeros((R, R, R), device=dev)
+    tsdf_ops.integrate_global(
+        gbv, gbw, depth, fr["rgb"].to(dev), fr["K"].to(dev), c2w,
+        torch.as_tensor(slam.bound, device=dev),
+        trunc_margin=slam.config["training"]["c_trunc"])
+    refs["grid"] = (gbv, gbw)
+
+    f0 = frame_inputs(torch, ds, 0)
+    n = int(cfg_b["mapping"]["sample"])
+    rays = [torch.as_tensor(a, device=dev) for a in frame_rays(
+        ds[0], ds[0]["c2w"], np.random.default_rng(0), n)]
+    scene, _ = map_scene(torch, cfg_b, f0, dev)
+    refs["params0"] = {k: v.detach().cpu().numpy()
+                       for k, v in scene.named_parameters()}
+    u = torch.rand(scene.z_vals_shape(n), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    z = scene.sample_z_vals(rays[0][:, 6:7], u=u)
+    pts = scene.normalize((rays[1][:, None] + rays[2][:, None]
+                           * z[..., None]).reshape(-1, 3))
+    refs["query"] = scene.query_gbv(pts)
+    step = sharding.sharded_map_train_step(
+        scene, torch.optim.SGD(scene.parameters(), lr=1e-2), None,
+        loss_weights(cfg_b))
+    refs["loss"], refs["params"], refs["step_ms"] = timed_steps(
+        torch, step, scene, rays + [u], SHARDED_TIMED_STEPS)
+    path = os.path.join(out_dir, "inputs.pt")
+    torch.save({"tsdf": mv.state.tsdf.cpu(), "origin": mv.state.origin.cpu(),
+                "dims": [int(d) for d in mv.dims],
+                "voxel_size": float(mv.voxel_size),
+                "layout": [int(v) for v in tr.brick_layout], "frame": fr,
+                "frame0": f0,
+                "init": torch.tensor(init), "rays": [r.cpu() for r in rays],
+                "u": u.cpu(), "pts": pts.cpu(), "H": ds.H, "W": ds.W,
+                "K": torch.tensor(np.asarray(ds.K(), np.float32))}, path)
+    refs["map_inputs"] = (cfg_b, scene, rays, u)
+    return path, refs
+
+
+def sharded_rank(rank, world, path, cfg_a, cfg_b, out_dir, device="cuda"):
+    """The [sharded] checks' runs on one rank of the world (the card
+    launch.spawn set current): candidate-sharded tier costs and
+    do_tracking on slice A's last frame, the slab-sharded fusion of that
+    frame (the slab written to out_dir), the DP map step and the
+    grid-sharded map step on bench_hashgrid.yaml's scene, and the
+    interleaved dataflow over SHARDED_FRAMES frames of synthetic_bench.yaml.
+    The launch counts are zeroed at the start and read before the one
+    comparison launch (hash_table_grad against its plain version on this
+    rank's own inputs)."""
+    import numpy as np
+    import torch
+
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.ops import hash_enc as he
+    from remixfusion_tpu_torch.ops.tsdf import VolumeState
+    from remixfusion_tpu_torch.parallel import dryrun, sharding
+    from remixfusion_tpu_torch.parallel.launch import Collectives, make_group
+    from remixfusion_tpu_torch.tracking.rotracker import ROTracker
+
+    dev = dryrun.rank_device(device)
+    comm = Collectives(make_group())
+    inp = torch.load(path)
+    out = {"backend": comm.backend, "rank": rank}
+    be.brick_eval_volume.launches = 0
+    he.hash_table_grad.launches = 0
+    t0 = time.time()
+
+    tr = ROTracker(cfg_a, inp["H"], inp["W"], inp["K"].numpy(), inp["dims"],
+                   inp["voxel_size"], inp["layout"], dev, group=comm)
+    state = VolumeState(inp["tsdf"].to(dev), None, None,
+                        inp["origin"].to(dev))
+    fr = {k: v.to(dev) for k, v in inp["frame"].items()}
+    vn = tr.vertex_normal_maps(fr["depth"])
+    view = tr.track_view(state.tsdf)
+    c2w = fr["c2w"]
+    costs, shapes = [], []
+    for cls in range(3):
+        level = tr.class_level[cls]
+        costs.append(tr.score_tier(
+            cls, 0, level, 0, c2w[:3, :3], c2w[:3, 3],
+            tr.init_search_size(), vn, view, state.origin).cpu())
+        shapes.append((int(tr.pst_t_rank[cls].shape[2]), int(tr.tier_inputs(
+            level, 0, c2w[:3, :3], c2w[:3, 3], tr.init_search_size(), vn,
+            state.origin)[1].shape[0])))
+    out["costs"], out["tier_shapes"] = costs, shapes
+    n0 = be.brick_eval_volume.launches
+    out["pose"] = tr.do_tracking(state, inp["init"].to(dev),
+                                 fr["depth"]).c2w.cpu().numpy()
+    out["shift_pose"] = shifted_pose(
+        torch, cfg_a, (inp["H"], inp["W"], inp["K"].numpy(), inp["dims"],
+                       inp["voxel_size"], inp["layout"], dev),
+        state, inp["init"].to(dev), fr["depth"], comm, SHIFT_SEED + rank)
+    out["track_launches"] = be.brick_eval_volume.launches - n0
+    del state, view, vn, tr
+
+    R = int(cfg_a["globalV"]["base_resolution"])
+    fuse = sharding.sharded_fuse_frame(comm, R, cfg_a["training"]["c_trunc"],
+                                       inp["H"], inp["W"])
+    slab = sharding.SlabGrid(R, comm, dev)
+    fuse(slab.gbv, slab.gbw, fr["depth"], fr["rgb"], fr["K"], c2w,
+         torch.as_tensor(np.asarray(cfg_a["mapping"]["bound"], np.float32),
+                         device=dev))
+    out["slab"] = os.path.join(out_dir, f"slab_D{world}_r{rank}.pt")
+    torch.save((slab.gbv.cpu(), slab.gbw.cpu()), out["slab"])
+    out["bounds"] = fuse.bounds
+    del slab
+
+    lw = dryrun.loss_weights(cfg_b)
+    batch = [r.to(dev) for r in inp["rays"]] + [inp["u"].to(dev)]
+    scene, _ = map_scene(torch, cfg_b, inp["frame0"], dev)
+    step = sharding.sharded_map_train_step(
+        scene, torch.optim.SGD(scene.parameters(), lr=1e-2), comm, lw)
+    comm.reset_traffic()
+    with HashCalls() as hc:
+        out["dp_loss"], out["dp_params"], out["dp_ms"] = timed_steps(
+            torch, step, scene, batch, SHARDED_TIMED_STEPS)
+    out["dp_launches"] = hc.launches
+    out["dp_bytes"] = {k: v // SHARDED_TIMED_STEPS
+                       for k, v in comm.bytes.items()}
+    del scene, step
+
+    gscene, slab = map_scene(torch, cfg_b, inp["frame0"], dev, comm,
+                             whole=False)
+    pts = inp["pts"].to(dev)
+    m = pts.shape[0] // world
+    out["query"] = gscene.query_gbv(pts[rank * m:(rank + 1) * m]).cpu()
+    gstep = sharding.gridsharded_map_train_step(
+        gscene, torch.optim.SGD(gscene.parameters(), lr=1e-2), comm, lw)
+    n0 = he.hash_table_grad.launches
+    comm.reset_traffic()
+    out["grid_loss"], out["grid_params"], out["grid_ms"] = timed_steps(
+        torch, gstep, gscene, batch, SHARDED_TIMED_STEPS)
+    out["grid_launches"] = he.hash_table_grad.launches - n0
+    out["grid_bytes"] = {k: v // SHARDED_TIMED_STEPS
+                         for k, v in comm.bytes.items()}
+    out["grid_scene_holds_grid"] = gscene.gbv is not None
+    out["slab_shape"] = tuple(slab.gbv.shape)
+    del gscene, slab, gstep
+
+    n0 = be.brick_eval_volume.launches
+    flow = dryrun.interleaved_dataflow(
+        comm, cfg_a, SHARDED_FRAMES, map_every=SHARDED_MAP_EVERY,
+        n_rays=int(cfg_a["mapping"]["sample"]), device=dev)
+    out["flow_launches"] = be.brick_eval_volume.launches - n0
+    out["flow"] = {k: flow[k] for k in ("ate_rmse_cm_ro_only", "losses",
+                                         "frame_ms", "step_ms",
+                                         "step_bytes")}
+    out["launches"] = {"brick_eval": be.brick_eval_volume.launches,
+                       "hash_table_grad": he.hash_table_grad.launches}
+    out["wall_s"] = time.time() - t0
+
+    # the comparison launch: the kernel on this rank's captured inputs
+    enc, x, g, n_rows = hc.calls[0]
+    ref = he.hash_table_grad_reference(enc, x, g, n_rows)
+    got = he.hash_table_grad(enc, x, g, n_rows)
+    out["hash_shape"] = (int(x.shape[0]), int(n_rows))
+    out["hash_err"] = float((got - ref).abs().max())
+    out["hash_scale"] = float(ref.abs().max())
+    return out
+
+
+def close_params(got, ref, start, what):
+    """The map step's parameters within STEP_RTOL / STEP_ATOL of the
+    single-process step's, and each parameter's update from `start` within
+    STEP_UPDATE_REL of the largest entry of the single-process update.
+    Returns (the largest |d| of the parameters, the largest update error
+    relative to that entry)."""
+    import numpy as np
+
+    worst, worst_upd = 0.0, 0.0
+    for k, r in ref.items():
+        d = np.abs(got[k] - r)
+        if not (d <= STEP_ATOL + STEP_RTOL * np.abs(r)).all():
+            fail(f"{what}: parameter {k} off by {float(d.max())}")
+        want = r - start[k]
+        scale = max(float(np.abs(want).max()), 1e-30)
+        e = float(np.abs(got[k] - start[k] - want).max()) / scale
+        if not e <= STEP_UPDATE_REL:
+            fail(f"{what}: parameter {k}'s update off the single-process "
+                 f"update by {e:.3e} of its largest entry {scale:.3e}")
+        worst, worst_upd = max(worst, float(d.max())), max(worst_upd, e)
+    return worst, worst_upd
+
+
+def check_world(torch, D, res, refs, iters, R):
+    """Every [sharded] check of one world's results against the
+    single-process references; returns the world's record."""
+    import numpy as np
+
+    tag = f"[sharded D={D} {res[0]['backend']}]"
+    rec = {"ranks": D, "backend": res[0]["backend"], "tiers": []}
+    for cls in range(3):
+        got = res[0]["costs"][cls].to(refs["kernel"][cls].device)
+        if not all(torch.equal(r["costs"][cls], res[0]["costs"][cls])
+                   for r in res):
+            fail(f"{tag} tier {cls}: the ranks gathered other costs")
+        if not torch.equal(got, refs["kernel"][cls]):
+            fail(f"{tag} tier {cls}: the gathered costs are not the "
+                 f"single-process kernel's bits")
+        e_k = compare_costs(torch, got, refs["kernel"][cls],
+                            f"{tag} tier {cls} vs the single-process kernel")
+        e_p = compare_costs(torch, got, refs["plain"][cls],
+                            f"{tag} tier {cls} vs the plain version")
+        shapes = [r["tier_shapes"][cls] for r in res]
+        rec["tiers"].append({"C": int(got.numel()),
+                             "per_rank_C_P": shapes,
+                             "max_abs_err_vs_kernel": e_k[0],
+                             "max_abs_err_vs_plain": e_p[0]})
+        print(f"{tag} tier {cls}: C={got.numel()}, per rank (C, P) "
+              f"{shapes}; gathered costs bitwise the single-process "
+              f"kernel's, vs plain max|d|={e_p[0]:.3e} mean|d|="
+              f"{e_p[1]:.3e}; same 1e6 guards", flush=True)
+    d = float(np.abs(res[0]["pose"] - refs["pose"]).max())
+    if not d < POSE_TOL or any(not np.array_equal(r["pose"], res[0]["pose"])
+                               for r in res):
+        fail(f"{tag} do_tracking pose off the single-process one by {d}, "
+             f"or the ranks differ")
+    rec["pose_max_abs_diff"] = d
+    d_shift = float(np.abs(res[0]["shift_pose"] - refs["shift_pose"]).max())
+    d_other = float(np.abs(refs["shift_pose_other_seed"]
+                           - refs["shift_pose"]).max())
+    if not d_shift < POSE_TOL or any(
+            not np.array_equal(r["shift_pose"], res[0]["shift_pose"])
+            for r in res):
+        fail(f"{tag} do_tracking with RO.sample_range {SHIFT_RANGE}: pose "
+             f"off the single-process one from rank 0's seed by {d_shift}, "
+             f"or the ranks differ")
+    if not d_other > POSE_TOL:
+        fail(f"{tag} another shift seed moves the single-process pose by "
+             f"only {d_other}: the shift check cannot see a draw")
+    rec["shift_pose_max_abs_diff"] = d_shift
+    print(f"{tag} do_tracking with RO.sample_range {SHIFT_RANGE}, each "
+          f"rank's shift generator seeded {SHIFT_SEED} + rank: pose vs the "
+          f"single process from seed {SHIFT_SEED} max|d|={d_shift:.3e} "
+          f"(from seed {SHIFT_SEED + 1}: {d_other:.3e})", flush=True)
+    for r in res:
+        want = {"track_launches": 2 * iters,
+                "flow_launches": iters * (SHARDED_FRAMES - 1),
+                "dp_launches": SHARDED_TIMED_STEPS,
+                "grid_launches": SHARDED_TIMED_STEPS}
+        got = {k: r[k] for k in want}
+        if got != want:
+            fail(f"{tag} rank {r['rank']}: launches {got}, expected {want}")
+        if not r["hash_err"] <= HASH_TOL * r["hash_scale"]:
+            fail(f"{tag} rank {r['rank']}: hash_table_grad off its plain "
+                 f"version by {r['hash_err']} (scale {r['hash_scale']})")
+    print(f"{tag} do_tracking pose vs single-process max|d|={d:.3e}; per "
+          f"rank launches: brick_eval {iters} per tracked frame "
+          f"({res[0]['track_launches']} in two tracks + dataflow "
+          f"{res[0]['flow_launches']}), hash_table_grad 1 per map step; "
+          f"hash_table_grad at N={res[0]['hash_shape'][0]} per rank vs "
+          f"plain max|d|={max(r['hash_err'] for r in res):.3e}", flush=True)
+    rec["hash_shape"] = res[0]["hash_shape"]
+    rec["hash_max_abs_err"] = max(r["hash_err"] for r in res)
+
+    slabs = [torch.load(r["slab"]) for r in res]
+    gbv = torch.cat([v for v, _ in slabs])
+    gbw = torch.cat([w for _, w in slabs])
+    if not (torch.equal(gbv, refs["grid"][0].cpu())
+            and torch.equal(gbw, refs["grid"][1].cpu())):
+        fail(f"{tag} the concatenated slabs are not integrate_global's grid")
+    print(f"{tag} fusion: slabs {[r['bounds'] for r in res]} of R={R} "
+          f"concatenated bitwise integrate_global's grid", flush=True)
+    for r in res:
+        os.remove(r["slab"])
+
+    e_dp, u_dp = close_params(res[0]["dp_params"], refs["params"],
+                              refs["params0"], f"{tag} DP map step")
+    query = torch.cat([r["query"] for r in res])
+    if not torch.equal(query, refs["query"].cpu()):
+        fail(f"{tag} the slab query is not query_gbv's bits")
+    e_grid, u_grid = close_params(res[0]["grid_params"], refs["params"],
+                                  refs["params0"],
+                                  f"{tag} grid-sharded map step")
+    for k in ("dp_loss", "grid_loss"):
+        if not abs(res[0][k] - refs["loss"]) <= 1e-4 * abs(refs["loss"]):
+            fail(f"{tag} {k} {res[0][k]} vs single-process {refs['loss']}")
+    if any(r["grid_scene_holds_grid"] for r in res):
+        fail(f"{tag} the grid-sharded scene holds a grid")
+    rec.update(dp_param_max_abs_diff=e_dp, grid_param_max_abs_diff=e_grid,
+               dp_update_max_rel_err=u_dp, grid_update_max_rel_err=u_grid,
+               dp_ms=res[0]["dp_ms"], grid_ms=res[0]["grid_ms"],
+               single_step_ms=refs["step_ms"], dp_bytes=res[0]["dp_bytes"],
+               grid_bytes=res[0]["grid_bytes"],
+               slab_shape=res[0]["slab_shape"])
+    print(f"{tag} DP map step: parameters vs single-process max|d|="
+          f"{e_dp:.3e}, update max|d| {u_dp:.3e} of its largest entry, "
+          f"loss {res[0]['dp_loss']:.6f} (single "
+          f"{refs['loss']:.6f}); {res[0]['dp_ms']:.2f} ms per step "
+          f"(single process {refs['step_ms']:.2f} ms); collective bytes per "
+          f"step per rank {res[0]['dp_bytes']}", flush=True)
+    print(f"{tag} grid-sharded map step: slab {res[0]['slab_shape']}, "
+          f"the scene holds no grid, slab query bitwise "
+          f"query_gbv on {query.shape[0]} points, parameters max|d|="
+          f"{e_grid:.3e}, update max|d| {u_grid:.3e} of its largest "
+          f"entry; {res[0]['grid_ms']:.2f} ms per step; collective "
+          f"bytes per step per rank {res[0]['grid_bytes']}", flush=True)
+
+    flow = res[0]["flow"]
+    ate = flow["ate_rmse_cm_ro_only"]
+    if not ate < ATE_BAR_CM:
+        fail(f"{tag} dataflow RO-only ATE {ate} cm >= {ATE_BAR_CM}")
+    rec["dataflow"] = {
+        "frames": SHARDED_FRAMES, "ate_rmse_cm_ro_only": ate,
+        "ms_per_frame": float(np.mean(flow["frame_ms"])),
+        "ms_per_map_step": float(np.mean(flow["step_ms"])),
+        "collective_bytes_per_map_step": flow["step_bytes"][-1],
+        "losses": flow["losses"]}
+    print(f"{tag} dataflow over {SHARDED_FRAMES} frames (map step every "
+          f"{SHARDED_MAP_EVERY}): RO-only ATE {ate:.4f} cm, "
+          f"{rec['dataflow']['ms_per_frame']:.2f} ms per frame, "
+          f"{rec['dataflow']['ms_per_map_step']:.2f} ms per map step, "
+          f"collective bytes per map step per rank {flow['step_bytes'][-1]}; "
+          f"rank walls {[round(r['wall_s'], 1) for r in res]} s", flush=True)
+    rec["launches"] = [r["launches"] for r in res]
+    return rec
+
+
+def phase_sharded(torch, slam, frames):
+    """[sharded]: the scale-out path (parallel/, ROTracker(group=...)) in
+    each world of SHARDED_WORLDS on the one card, every check against the
+    single-process path on the card; then brick_eval at a rank's candidate
+    slice and hash_table_grad at a rank's points against their plain
+    versions, timed. Returns (record, brick_eval shapes, hash_table_grad
+    shapes, launches summed over the worlds' ranks)."""
+    import tempfile
+
+    from remixfusion_tpu_torch.parallel.dryrun import pick_backend
+    from remixfusion_tpu_torch.parallel.launch import spawn
+
+    out_dir = os.path.join(ROOT, "build", "smoke", "sharded")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.time()
+    path, refs = sharded_setup(torch, slam, frames, out_dir,
+                               slice_config("B"))
+    print(f"[sharded] inputs and single-process references on the card in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        errs = spawn(nccl_probe_rank, 2, backend="nccl", device="cuda",
+                     init_file=os.path.join(tmp, "rendezvous"),
+                     timeout_s=120)
+    if not all(e and "Duplicate GPU" in e for e in errs):
+        fail(f"[sharded] NCCL was expected to refuse two ranks on one card "
+             f"(the reason the 2-rank world runs on gloo): {errs}")
+    print(f"[sharded] NCCL with 2 ranks on one card: refused ("
+          f"{errs[0].strip().splitlines()[-1]})", flush=True)
+    cfg_b = refs["map_inputs"][0]
+    iters = int(slam.config["RO"]["particle_iter_lens"])
+    R = int(slam.config["globalV"]["base_resolution"])
+    record = {"worlds": []}
+    launches = {"brick_eval": 0, "hash_table_grad": 0}
+    for D in SHARDED_WORLDS:
+        backend, why = pick_backend("cuda", D)
+        print(f"[sharded] world of {D} rank(s) on the one card: backend "
+              f"{backend} ({why})", flush=True)
+        t1 = time.time()
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            res = spawn(sharded_rank, D, backend=backend, device="cuda",
+                        init_file=os.path.join(tmp, "rendezvous"),
+                        timeout_s=SHARDED_TIMEOUT_S,
+                        args=(path, slam.config, cfg_b, out_dir))
+        rec = check_world(torch, D, res, refs, iters, R)
+        rec["wall_s"] = time.time() - t1
+        record["worlds"].append(rec)
+        for r in res:
+            for k in launches:
+                launches[k] += r["launches"][k]
+    os.remove(path)
+
+    # a rank's kernel shapes (world of 2), timed against the plain versions
+    brick_shapes = []
+    for args in refs["tiers"]:
+        table = args[-1]
+        C = table.shape[1]
+        half = torch.cat([table[:, :1], table[:, C // 2:]], 1).contiguous()
+        brick_shapes += check_brick_case(torch, args[:-1] + (half,),
+                                         "sharded rank 1 of 2", split_for=C)
+    cfg_b, scene, rays, u = refs["map_inputs"]
+    hash_shapes = sharded_hash_shapes(torch, cfg_b, scene, rays, u)
+    return record, brick_shapes, hash_shapes, launches
+
+
+def sharded_hash_shapes(torch, cfg_b, scene, rays, u):
+    """hash_table_grad at a rank's points (the first half of the batch, a
+    single-process step of those rays capturing its call) against its plain
+    version, timed (phase 5's checks)."""
+    from remixfusion_tpu_torch.parallel import sharding
+    from remixfusion_tpu_torch.parallel.dryrun import loss_weights
+
+    m = rays[0].shape[0] // 2
+    step = sharding.sharded_map_train_step(
+        scene, torch.optim.SGD(scene.parameters(), lr=1e-2), None,
+        loss_weights(cfg_b))
+    with HashCalls() as hc:
+        step(*(r[:m] for r in rays), u=u[:m])
+    return phase_hash_kernel(torch, hc.calls,
+                             table="HashGrid, a rank's half of the batch")
+
+
 def main():
     import torch
 
@@ -1759,6 +2380,11 @@ def main():
     render_launches = {"brick_eval": be.brick_eval_volume.launches,
                        "hash_table_grad": he.hash_table_grad.launches}
     wall["render"] = time.time() - t0
+    t0 = time.time()
+    sharded, sharded_brick, sharded_hash, launches_s = phase_sharded(
+        torch, slam, out_a["frames"])
+    brick["shapes"] += sharded_brick
+    wall["sharded"] = time.time() - t0
     del slam
     torch.cuda.empty_cache()
 
@@ -1776,7 +2402,7 @@ def main():
     del slam, captured
     torch.cuda.empty_cache()
     t0 = time.time()
-    hash_shapes += phase_dense_hash(torch)
+    hash_shapes += phase_dense_hash(torch) + sharded_hash
     hashk = hash_kernel_record(hash_shapes)
     wall["kernel hash_table_grad (DenseGrid)"] = time.time() - t0
     torch.cuda.empty_cache()
@@ -1861,7 +2487,9 @@ def main():
                                      for k, v in mode_launches.items()},
                                   "render": render_launches["brick_eval"],
                                   "render eval": launches_re,
-                                  "live": launches_live}
+                                  "live": launches_live,
+                                  "sharded": launches_s["brick_eval"]}
+    brick["sharded"] = sharded
     hashk["launches"] = launches_b["hash_table_grad"]
     hashk["launches_by_slice"] = {
         "A": launches_a["hash_table_grad"], "B": launches_b["hash_table_grad"],
@@ -1869,7 +2497,15 @@ def main():
         "corridor resumed": launches_r["hash_table_grad"],
         "gather": launches_g["hash_table_grad"],
         **{k: v["hash_table_grad"] for k, v in mode_launches.items()},
-        "render": render_launches["hash_table_grad"]}
+        "render": render_launches["hash_table_grad"],
+        "sharded": launches_s["hash_table_grad"]}
+    hashk["sharded"] = [{"ranks": w["ranks"], "backend": w["backend"],
+                         "N_per_rank": w["hash_shape"][0],
+                         "max_abs_err": w["hash_max_abs_err"]}
+                        for w in sharded["worlds"]]
+    for k in ("brick_eval", "hash_table_grad"):
+        if not launches_s[k] > 0:
+            fail(f"[sharded] {k} was never launched")
     print(json.dumps({"phase_wall_s": wall}), flush=True)
     print(json.dumps({"kernels": [brick, hashk]}), flush=True)
     print(card_line(), flush=True)

@@ -35,9 +35,19 @@ from remixfusion_tpu_torch.models.encodings import get_encoder
 from remixfusion_tpu_torch.models.rba import RBA
 
 
+GRID_WIDTH = {"gbv": 4, "gbw": 1}
+
+
 class SceneRepresentation(nn.Module):
     def __init__(self, config, bound_box, num_kf: int, device="cpu",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, grid_rows=None):
+        """grid_rows: None for a scene that holds its explicit grid (the
+        buffers gbv [R, R, R, 4] and gbw [R, R, R]); or a function (name,
+        base [N], offsets) -> [N, 8, C], the 8 corner rows (row base +
+        offsets[k]) of the flattened grid `name` held elsewhere, as
+        parallel/sharding.SlabGrid.rows reads the ranks' slabs. The scene
+        then holds no grid (gbv and gbw are None) and its queries read those
+        rows. The parameters' draws do not depend on it."""
         super().__init__()
         self.config = config
         bb = np.asarray(bound_box, np.float32)
@@ -59,11 +69,16 @@ class SceneRepresentation(nn.Module):
         self.gbv_resolution = int(config["globalV"]["base_resolution"])
         self.c_trunc = config["training"]["c_trunc"]
         self.trunc = config["training"]["trunc"]
-        R = self.gbv_resolution
-        gbv = torch.zeros((R, R, R, 4), device=device)
-        gbv[..., 0] = 1.0
-        self.register_buffer("gbv", gbv)
-        self.register_buffer("gbw", torch.zeros((R, R, R), device=device))
+        self.grid_rows = grid_rows
+        if grid_rows is None:
+            R = self.gbv_resolution
+            gbv = torch.zeros((R, R, R, 4), device=device)
+            gbv[..., 0] = 1.0
+            self.register_buffer("gbv", gbv)
+            self.register_buffer("gbw", torch.zeros((R, R, R),
+                                                    device=device))
+        else:
+            self.gbv = self.gbw = None
         self.to(device)
 
         if generator is None:
@@ -101,10 +116,12 @@ class SceneRepresentation(nn.Module):
 
     # ---------------------------------------------------- explicit volume
 
-    def _trilinear(self, flat: torch.Tensor, pts: torch.Tensor):
-        """Trilinear lookup of a flattened [R^3, C] grid at normalized
-        points [N, 3] (node i at i / R, clamped to the interpolation
-        range) -> [N, C]."""
+    def _trilinear(self, name: str, pts: torch.Tensor):
+        """Trilinear lookup of the grid `name` (gbv, C = 4, or gbw, C = 1,
+        flattened to [R^3, C]) at normalized points [N, 3] (node i at i / R,
+        clamped to the interpolation range) -> [N, C]. The corner rows come
+        from the scene's own grid, or from grid_rows when it holds none;
+        either way they are weighted and added in one order."""
         R = self.gbv_resolution
         pos = pts * R
         low = torch.clamp(torch.floor(pos), 0, R - 2)
@@ -112,25 +129,34 @@ class SceneRepresentation(nn.Module):
         li = low.to(torch.int64)
         sx, sy = R * R, R
         base = li[:, 0] * sx + li[:, 1] * sy + li[:, 2]
-        out = torch.zeros((pts.shape[0], flat.shape[1]), dtype=torch.float32,
-                          device=pts.device)
+        offsets = [dx * sx + dy * sy + dz
+                   for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+        if self.grid_rows is None:
+            flat = getattr(self, name).reshape(R ** 3, -1)
+            corner = lambda k: flat[base + offsets[k]]  # noqa: E731
+        else:
+            rows = self.grid_rows(name, base, offsets)
+            corner = lambda k: rows[:, k]  # noqa: E731
+        out = torch.zeros((pts.shape[0], GRID_WIDTH[name]),
+                          dtype=torch.float32, device=pts.device)
+        k = 0
         for dx in (0, 1):
             for dy in (0, 1):
                 for dz in (0, 1):
                     w = ((frac[:, 0] if dx else 1 - frac[:, 0])
                          * (frac[:, 1] if dy else 1 - frac[:, 1])
                          * (frac[:, 2] if dz else 1 - frac[:, 2]))
-                    out = out + w[:, None] * flat[base + dx * sx + dy * sy
-                                                  + dz]
+                    out = out + w[:, None] * corner(k)
+                    k += 1
         return out
 
     def query_gbv(self, pts: torch.Tensor) -> torch.Tensor:
         """[N, 4] (tsdf, r, g, b) at normalized points [N, 3]."""
-        return self._trilinear(self.gbv.reshape(-1, 4), pts)
+        return self._trilinear("gbv", pts)
 
     def query_gbw(self, pts: torch.Tensor) -> torch.Tensor:
         """[N] trilinear fusion weight at normalized points [N, 3]."""
-        return self._trilinear(self.gbw.reshape(-1, 1), pts)[:, 0]
+        return self._trilinear("gbw", pts)[:, 0]
 
     def normalize(self, pts_world: torch.Tensor) -> torch.Tensor:
         """World -> [0, 1]^3 normalized coordinates."""
@@ -277,9 +303,12 @@ class SceneRepresentation(nn.Module):
     # ------------------------------------------------------------- losses
 
     def mapping_losses(self, rays_o, rays_d, target_rgb, target_d,
-                       clamp: bool = False, u=None, generator=None):
+                       clamp: bool = False, u=None, generator=None,
+                       count_reduce=None):
         """Render + the four mapping losses (reference scene_rep.py:460-528,
-        model/utils.py:170-256)."""
+        model/utils.py:170-256). count_reduce: None, or a function that
+        sums a tensor of counts over the ranks of a sharded step, so that
+        the masked means divide by the whole batch's counts."""
         cfg = self.config
         rend = self.render_rays(rays_o, rays_d, target_d, clamp=clamp, u=u,
                                 generator=generator)
@@ -290,12 +319,14 @@ class SceneRepresentation(nn.Module):
         rgb_res_loss = torch.mean((rend["rgb_res_map"] * rgb_weight
                                    - target_rgb * rgb_weight) ** 2)
         derr = (rend["depth_res_map"] - td) ** 2
-        depth_res_loss = torch.sum(derr * valid) / torch.clamp(
-            torch.sum(valid), min=1)
+        n_valid = torch.sum(valid)
+        if count_reduce is not None:
+            n_valid = count_reduce(n_valid)
+        depth_res_loss = torch.sum(derr * valid) / torch.clamp(n_valid, min=1)
         truncation = cfg["training"]["trunc"] * cfg["data"]["sc_factor"]
         fs_res_loss, sdf_res_loss = self.sdf_losses(
             rend["z_vals"], target_d, rend["raw"][..., 3], truncation,
-            middle_mask=valid)
+            middle_mask=valid, count_reduce=count_reduce)
         return {"rgb_res_loss": rgb_res_loss,
                 "depth_res_loss": depth_res_loss,
                 "sdf_res_loss": sdf_res_loss, "fs_res_loss": fs_res_loss,
@@ -304,14 +335,17 @@ class SceneRepresentation(nn.Module):
 
     @staticmethod
     def sdf_losses(z_vals, target_d, predicted_sdf, truncation,
-                   middle_mask=None):
-        """Free-space + SDF regression losses (model/utils.py:170-256)."""
+                   middle_mask=None, count_reduce=None):
+        """Free-space + SDF regression losses (model/utils.py:170-256);
+        count_reduce as mapping_losses takes it."""
         front_mask = torch.where(z_vals < (target_d - truncation), 1.0, 0.0)
         back_mask = torch.where(z_vals > (target_d + truncation), 1.0, 0.0)
         depth_mask = torch.where(target_d > 0.0, 1.0, 0.0)
         sdf_mask = (1.0 - front_mask) * (1.0 - back_mask) * depth_mask
         num_fs = torch.sum(front_mask > 0)
         num_sdf = torch.sum(sdf_mask > 0)
+        if count_reduce is not None:
+            num_fs, num_sdf = count_reduce(torch.stack([num_fs, num_sdf]))
         num = torch.clamp(num_fs + num_sdf, min=1)
         fs_weight = 1.0 - num_fs / num
         sdf_weight = 1.0 - num_sdf / num

@@ -215,13 +215,20 @@ def _check(params, pix, table, interp, extra):
 
 
 def brick_eval_volume(params, pix, base, tsdf_bm, layout, table, *,
-                      interp: str = "nearest"):
+                      interp: str = "nearest", split_for: int | None = None):
     """Cost [C] of every candidate, each pixel's window read from the
     brick-major volume tsdf_bm [NB, b^3] (layout (b, BY, BZ)) at its
     integer base (int32 [P, 3]) and rounded through bfloat16 — the tracker's
     entry. Every window must lie inside the volume (the tracker clamps its
     bases so). On a CPU tensor: brick_eval_volume_reference; on a CUDA
-    tensor: the kernel, or an error."""
+    tensor: the kernel, or an error.
+
+    split_for: the candidate count whose launch splits the pixel axis
+    (default C). A candidate's cost depends on the split alone, so a slice
+    of a table (with the identity candidate first) launched with
+    split_for = the whole table's count gets the bits the whole table's
+    launch gives those candidates: candidate-sharded tracking relies on
+    it."""
     from remixfusion_tpu_torch.ops import build
 
     dev = _check(params, pix, table, interp, tsdf_bm)
@@ -244,7 +251,10 @@ def brick_eval_volume(params, pix, base, tsdf_bm, layout, table, *,
     out = torch.empty((n_cand,), dtype=torch.float32, device=dev)
     if n_pix == 0:  # no pixel counts: cost 0, guard 0 >= 0 holds
         return out.zero_()
-    cblocks, splits, per = launch_shape(n_cand, n_pix, build.sm_count(dev))
+    n_sm = build.sm_count(dev)
+    cblocks, splits, per = launch_shape(n_cand, n_pix, n_sm)
+    if split_for is not None:
+        _, splits, per = launch_shape(int(split_for), n_pix, n_sm)
     partial = torch.empty((splits * (2 * n_cand + cblocks),),
                           dtype=torch.float32, device=dev)
     rc = _lib()(params.data_ptr(), pix.data_ptr(), pix.stride(0),

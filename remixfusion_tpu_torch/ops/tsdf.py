@@ -955,7 +955,7 @@ def _global_update(v, w, px, py, pz, depth_flat, color_flat, K, c2w,
 def integrate_global(gbv, gbw, depth, rgb, K, c2w, bound, *,
                      trunc_margin: float, obs_weight: float = 1.0,
                      tiles=None, tile: int | None = None,
-                     chunk: int = 1 << 21):
+                     chunk: int = 1 << 21, x0: int = 0):
     """Fuse one keyframe into the global grid gbv [R, R, R, 4] / gbw
     [R, R, R] in place (the JAX package returns new arrays; updating the
     touched voxels in place saves two copies of the 128 MB grid per
@@ -964,8 +964,23 @@ def integrate_global(gbv, gbw, depth, rgb, K, c2w, bound, *,
     voxels outside them are provably not updated, or rotated free space —,
     or None for the dense sweep over every voxel. depth [H, W] meters, rgb
     [H, W, 3] in [0, 1], K [3, 3], c2w [4, 4], bound [3, 2]: tensors on the
-    grid's device. Voxels move through in chunks of `chunk`."""
-    R = gbv.shape[0]
+    grid's device. Voxels move through in chunks of `chunk`.
+
+    gbv / gbw may also be the x-slab [S, R, R, ...] of the grid that starts
+    at voxel x0 (parallel/sharding.sharded_fuse_frame): every voxel takes
+    its global index, so the slab gets the bits the whole grid's sweep gives
+    those voxels. A slab is swept densely (tiles None)."""
+    R = gbv.shape[1]
+    S = gbv.shape[0]
+    if gbv.shape[:3] != (S, R, R) or gbw.shape != gbv.shape[:3]:
+        raise ValueError(f"integrate_global: gbv {tuple(gbv.shape)}, gbw "
+                         f"{tuple(gbw.shape)}")
+    if not (0 <= x0 and x0 + S <= R):
+        raise ValueError(f"slab [{x0}, {x0 + S}) lies outside the grid of "
+                         f"{R}")
+    if tiles is not None and S != R:
+        raise ValueError("integrate_global sweeps a slab densely (tiles "
+                         "None)")
     dev = gbv.device
     im_h, im_w = int(depth.shape[0]), int(depth.shape[1])
     v_flat = gbv.view(-1, 4)
@@ -982,7 +997,7 @@ def integrate_global(gbv, gbw, depth, rgb, K, c2w, bound, *,
         return _fma(((o + i.to(torch.float32)) - o) * inv_r, scale[a], o)
 
     def run(lin):
-        ix, iy, iz = lin // (R * R), (lin // R) % R, lin % R
+        ix, iy, iz = lin // (R * R) + x0, (lin // R) % R, lin % R
         v2, w2 = _global_update(
             v_flat[lin], w_flat[lin], coord(ix, 0), coord(iy, 1),
             coord(iz, 2), depth_flat, color_flat, K, c2w, trunc_margin, obs,
@@ -991,8 +1006,9 @@ def integrate_global(gbv, gbw, depth, rgb, K, c2w, bound, *,
         w_flat[lin] = w2
 
     if tiles is None:
-        for s in range(0, R ** 3, chunk):
-            run(torch.arange(s, min(s + chunk, R ** 3), device=dev))
+        n = S * R * R
+        for s in range(0, n, chunk):
+            run(torch.arange(s, min(s + chunk, n), device=dev))
         return gbv, gbw
     t = int(tile)
     loc = torch.arange(t ** 3, device=dev)

@@ -36,6 +36,18 @@ device-side success of the previous iteration, so each iteration reads back
 one boolean; every other step stays on the device. The reference's CUDA
 tracker read candidate scores back every iteration too (ROtracker.py:
 570-571).
+
+Candidate sharding (the counterpart of JAX's ROTracker(mesh=...)): with a
+process group of D ranks, rank r scores the candidate columns
+[r C/D, (r+1) C/D) of every tier in any eval_mode and the [C] costs are
+all-gathered, so every rank runs the transform step on the same vector and
+reads back the same boolean: the ranks stay in lockstep. The low-count guard
+compares every candidate's count with the identity candidate's (column 0),
+so every rank but the first scores column 0 ahead of its slice and drops
+that cost. The kernel splits a slice's pixels as it splits the whole
+table's (brick_eval_volume's split_for), so the gathered costs are the bits
+one process gets, and so is the pose. A generator passed for the ray shift
+is given rank 0's state first, so every rank draws the same shift.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ import torch
 from remixfusion_tpu_torch.ops.brick_eval import (BRICK_SIDE,
                                                   brick_eval_volume)
 from remixfusion_tpu_torch.ops.tsdf import bm_vox_flat, window_index
+from remixfusion_tpu_torch.parallel.launch import collectives
 from remixfusion_tpu_torch.tracking import pst as pst_mod
 
 EVAL_MODES = ("gather", "brick", "pallas")
@@ -103,7 +116,10 @@ def check_modes(cfg):
 
 class ROTracker:
     def __init__(self, cfg, H: int, W: int, K: np.ndarray, vol_dims,
-                 voxel_size: float, brick_layout, device):
+                 voxel_size: float, brick_layout, device, group=None):
+        """group: a torch.distributed process group to shard the candidates
+        over (ValueError unless every tier's candidate count divides by its
+        size), or None."""
         ro = cfg["RO"]
         self.device = dev = torch.device(device)
         self.H, self.W = int(H), int(W)
@@ -142,6 +158,27 @@ class ROTracker:
             np.ascontiguousarray(tables[c].transpose(0, 2, 1)), device=dev)
             for c in range(3)}
         self.slab_table = [int(s) for s in pst_mod.slab_index_table()]
+        # this rank's candidate columns, preceded by the identity column on
+        # every rank but the first: [slabs, C/D (+1), 6] and transposed
+        self.comm = collectives(group)
+        self.pst_rank, self.pst_t_rank = self.pst, self.pst_t
+        if self.comm is not None:
+            world, rank = self.comm.world, self.comm.rank
+            self.pst_rank, self.pst_t_rank = {}, {}
+            for c in range(3):
+                n = tables[c].shape[1]
+                if n % world:
+                    raise ValueError(f"RO tier {c}: {n} candidates do not "
+                                     f"split over {world} ranks")
+                m = n // world
+                cols = np.arange(rank * m, (rank + 1) * m)
+                if rank > 0:
+                    cols = np.concatenate([[0], cols])
+                part = tables[c][:, cols]
+                self.pst_rank[c] = torch.as_tensor(
+                    np.ascontiguousarray(part), device=dev)
+                self.pst_t_rank[c] = torch.as_tensor(np.ascontiguousarray(
+                    part.transpose(0, 2, 1)), device=dev)
         self.class_level = tuple(
             int(v) for v in ro.get("depth_level", pst_mod.DEPTH_LEVEL[:3]))
         self.depth_level = [self.class_level[i % 3]
@@ -519,6 +556,39 @@ class ROTracker:
         return self._guarded(vals, v[:, 3], pix_ok[None, :] & in_img
                              & in_win)
 
+    def score_tier(self, cls, slab, level, level_index, R, T, ss, vn, vol,
+                   origin):
+        """Cost [C] of every candidate of tier `cls`'s table slab in the
+        tracker's eval_mode; vol: the volume as track() reads it. With a
+        group this rank scores its columns and the costs are gathered."""
+        if self.eval_mode == "pallas":
+            params, pix, base = self.tier_inputs(level, level_index, R, T,
+                                                 ss, vn, origin)
+            value = brick_eval_volume(params, pix, base, vol,
+                                      self.brick_layout,
+                                      self.pst_t_rank[cls][slab],
+                                      interp=self.tsdf_interp,
+                                      split_for=self.pst_t[cls].shape[2])
+        else:
+            score = (self.eval_gather if self.eval_mode == "gather"
+                     else self.eval_brick)
+            value = score(self.pst_rank[cls][slab], level, level_index, R, T,
+                          ss, vn, vol, origin)
+        if self.comm is None:
+            return value
+        if self.comm.rank > 0:
+            value = value[1:]
+        return self.comm.all_gather_cat(value)
+
+    def track_view(self, tsdf):
+        """The volume as track() reads it: [NB, b^3] float32 for the kernel,
+        flat in the track dtype for the plain modes."""
+        if self.eval_mode == "pallas":
+            return tsdf.reshape(-1, self.brick_layout[0] ** 3)
+        vol = tsdf.reshape(-1)
+        return vol.to(torch.bfloat16) if self.track_dtype == "bfloat16" \
+            else vol
+
     # ------------------------------------------------------ transform step
 
     def _cal_transform(self, value, table, ss):
@@ -583,29 +653,17 @@ class ROTracker:
         ema_flag, first_ok = False, False
         count_cap = min(self.particle_iter_lens - 1, 19)
         origin_val = None
+        if (self.comm is not None and sample is None and generator is not None
+                and self.sample_range != 0.0):
+            self.comm.sync_generator(generator)
         vn = self.vertex_normal_maps(depth, sample, generator)
-        if self.eval_mode == "pallas":
-            vol = tsdf.reshape(-1, self.brick_layout[0] ** 3)
-        else:
-            vol = tsdf.reshape(-1)
-            if self.track_dtype == "bfloat16":
-                vol = vol.to(torch.bfloat16)
-            score = (self.eval_gather if self.eval_mode == "gather"
-                     else self.eval_brick)
+        vol = self.track_view(tsdf)
         for i in range(self.particle_iter_lens):
             cls = count % 3
             slab = self.slab_table[count]
             level = self.class_level[cls]
-            if self.eval_mode == "pallas":
-                params, pix, base = self.tier_inputs(
-                    level, level_index, R, T, ss, vn, origin)
-                value = brick_eval_volume(params, pix, base, vol,
-                                          self.brick_layout,
-                                          self.pst_t[cls][slab],
-                                          interp=self.tsdf_interp)
-            else:
-                value = score(self.pst[cls][slab], level, level_index, R, T,
-                              ss, vn, vol, origin)
+            value = self.score_tier(cls, slab, level, level_index, R, T, ss,
+                                    vn, vol, origin)
             success_t, min_tsdf, mean_t, mean_q = self._cal_transform(
                 value, self.pst[cls][slab], ss)
             origin_val = value[0]

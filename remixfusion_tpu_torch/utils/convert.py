@@ -106,7 +106,8 @@ def scene_from_numpy(config, bound, num_kf: int, params, buffers,
 
 
 def scene_to_numpy(scene: SceneRepresentation):
-    """(params, buffers) as dicts of numpy arrays in the JAX layout."""
+    """(params, buffers) as dicts of numpy arrays in the JAX layout (gbv
+    and gbw None for a scene that holds no grid)."""
     if scene.hash_table is None:
         table = None
     elif isinstance(scene.hash_table, torch.nn.ParameterDict):
@@ -118,8 +119,9 @@ def scene_to_numpy(scene: SceneRepresentation):
               "decoder": {"sdf_net": _mlp_to(scene.decoder_res.sdf_net),
                           "color_net": _mlp_to(scene.decoder_res.color_net)},
               "rba": _mlp_to(scene.rba.mlp)}
-    buffers = {"gbv": scene.gbv.cpu().numpy().copy(),
-               "gbw": scene.gbw.cpu().numpy().copy(),
+    grid = scene.gbv is not None
+    buffers = {"gbv": scene.gbv.cpu().numpy().copy() if grid else None,
+               "gbw": scene.gbw.cpu().numpy().copy() if grid else None,
                "rba": {n: getattr(scene.rba, n).cpu().numpy().copy()
                        for n in ("init_c2w", "init_r", "init_t")}}
     return params, buffers

@@ -29,6 +29,9 @@ PORT_FILES = sorted(
 RENDER_SLICE = ("utils/metrics.py", "utils/lpips.py", "utils/plot.py",
                 "core/traj.py", "tools/eval_ate.py", "tools/rendering_eval.py",
                 "tools/live_viewer.py", "tools/viz.py", "tools/rgb2video.py")
+# the scale-out slice: spawned ranks import these, and never JAX
+PARALLEL = ("parallel/__init__.py", "parallel/launch.py",
+            "parallel/sharding.py", "parallel/dryrun.py")
 
 
 @pytest.mark.parametrize("path", CONFIGS)
@@ -58,7 +61,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(PORT_FILES) > 10
-    for rel in RENDER_SLICE:
+    for rel in RENDER_SLICE + PARALLEL:
         assert os.path.join(ROOT, "remixfusion_tpu_torch", rel) in PORT_FILES
     for path in PORT_FILES:
         for mod in _imports(path):
@@ -93,9 +96,9 @@ def test_port_imports_no_image_library_at_module_level():
 
 
 def test_port_runs_without_jax_or_pyyaml():
-    """Import every port module (the rendering slice's by name too) and
-    load a config in a process where jax, the JAX package, yaml, cv2, PIL,
-    imageio and matplotlib cannot be imported."""
+    """Import every port module (the rendering and scale-out slices' by
+    name too) and load a config in a process where jax, the JAX package,
+    yaml, cv2, PIL, imageio and matplotlib cannot be imported."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'jaxlib', 'yaml', 'remixfusion_tpu', 'cv2',\n"
@@ -106,8 +109,9 @@ def test_port_runs_without_jax_or_pyyaml():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "    names.add(m.name)\n"
-        f"for rel in {RENDER_SLICE!r}:\n"
+        f"for rel in {RENDER_SLICE + PARALLEL!r}:\n"
         "    name = 'remixfusion_tpu_torch.' + rel[:-3].replace('/', '.')\n"
+        "    name = name.removesuffix('.__init__')\n"
         "    assert name in names, name\n"
         "import rendering_eval_torch\n"
         "from remixfusion_tpu_torch.config import load_config\n"

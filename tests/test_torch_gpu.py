@@ -226,6 +226,34 @@ def test_hash_table_grad_kernel_matches_plain(cuda_device, n_pts):
 
 
 @pytest.mark.gpu
+def test_candidate_sharded_brick_eval_matches_single_process(cuda_device,
+                                                             tmp_path):
+    """Candidate-sharded brick_eval on the card: a 2-rank gloo world (NCCL
+    refuses two ranks on one card) scores the full tiers (10240 / 3072 /
+    1024 candidates, 5121 / 1537 / 513 a rank with the identity column)
+    and gathers the costs: bitwise the single-process kernel's on the same
+    volume and frame, one launch per tier on every rank."""
+    import sharding_ranks
+    from helpers import tiny_config
+    from remixfusion_tpu_torch.parallel.launch import spawn
+
+    cfg = tiny_config(
+        RO={"eval_mode": "pallas", "depth_level": [4, 2, 1],
+            "PST_size": [10240, 3072, 1024]},
+        volume={"voxel_size": 0.025})
+    single, n_single = sharding_ranks.tier_costs(cfg, None, cuda_device)
+    res = spawn(sharding_ranks.tier_costs_rank, 2, backend="gloo",
+                device="cuda", init_file=str(tmp_path / "rendezvous"),
+                timeout_s=300, args=(cfg,))
+    assert n_single == 3 and [n for _, n in res] == [3, 3]
+    for got, ref in zip(res[0][0], single):
+        # a rank's slice launches with the whole table's pixel split, so
+        # its candidates get the single-process launch's bits
+        assert got.shape == ref.shape and np.array_equal(got, ref)
+    assert all(np.array_equal(a, b) for a, b in zip(res[0][0], res[1][0]))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("interp", ["nearest", "trilinear"])
 def test_brick_eval_dense_layout_matches_plain(cuda_device, interp):
     """The dense volume (volume.brick_fusion false): the same field as a
