@@ -206,7 +206,21 @@ prints no result line):
      input at stride 2 (120x160), the published frames' sizes in order;
      brick_eval launched 20 times per tracked frame; after close() the
      port refuses connections;
-  15. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
+  15. bench A and bench B: `python3 bench_torch.py --config
+     configs/Synthetic/{synthetic_bench,bench_hashgrid}.yaml` in a child
+     process at its defaults, uncut (200 frames of the 240-degree orbit,
+     30 warm-up frames, mapping.first_iters 100, the mesh block on; A
+     renders the 200 frames into the disk render cache, B reads them
+     from it), as a user runs the bench: exit 0 and the last line
+     bench.py's four keys with fps > 0; from the child's `# result` line
+     on stderr: full and RO-only ATE below 2 cm, mesh F1 (the 4 cm mesh,
+     bench.py's score) >= 0.90, brick_eval launched 20 times per tracked
+     frame (3,980), hash_table_grad twice per map iteration of the timed
+     loop in B and never in A. Printed: fps, ms per round, the frames
+     over 1 s, peak memory, the phase wall and the quality beside
+     BENCH_r05.json's (BENCH_RECORD); the child's whole stderr is kept in
+     build/smoke/bench_<A|B>.log;
+  16. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
      and power limit; and last the {"ok": true, ...} line.
 Every kernel is timed two ways: device_ms, the device time of one call (a
 CUDA graph of many calls replayed back to back, timed with CUDA events,
@@ -324,6 +338,15 @@ STEP_UPDATE_REL = 1e-3
 POSE_TOL = 1e-5
 SHIFT_RANGE, SHIFT_SEED = 0.1, 100
 SHARDED_TIMED_STEPS = 6
+# [bench A] / [bench B]: bench_torch.py uncut on the two main-path configs,
+# its time limit, and BENCH_r05.json's chip-independent quality digits
+# (the JAX bench's record on synthetic_bench.yaml, the target)
+BENCH = {"A": os.path.join(SYN, "synthetic_bench.yaml"),
+         "B": os.path.join(SYN, "bench_hashgrid.yaml")}
+BENCH_FRAMES = 200
+BENCH_TIMEOUT_S = 480
+BENCH_RECORD = {"ate_rmse_cm": 1.030, "ate_rmse_cm_ro_only": 1.019,
+                "f1": 0.976, "accuracy_cm": 1.197, "completion_cm": 1.884}
 
 
 def fail(msg):
@@ -1690,6 +1713,79 @@ def image_dims(body):
     return None
 
 
+def phase_bench(label):
+    """[bench <label>]: bench_torch.py on BENCH[label] in a child process
+    at its defaults (the BENCH_* variables cleared), held to the slices'
+    bars; returns the child's `# result` numbers with the phase wall."""
+    from remixfusion_tpu_torch.config import load_config
+
+    tag = f"[bench {label}]"
+    rel = os.path.relpath(BENCH[label], ROOT)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_") and k != "REMIX_PROFILE"}
+    t0 = time.time()
+    try:
+        out = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "bench_torch.py"),
+             "--config", rel], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"{tag} bench_torch.py ran past {BENCH_TIMEOUT_S} s")
+    wall = time.time() - t0
+    log = os.path.join(ROOT, "build", "smoke", f"bench_{label}.log")
+    os.makedirs(os.path.dirname(log), exist_ok=True)
+    with open(log, "w") as f:
+        f.write(out.stderr)
+    for line in out.stderr.splitlines():
+        if line.startswith("# ") and not line.startswith("# result "):
+            print(f"{tag} {line[2:]}", flush=True)
+    if out.returncode != 0:
+        fail(f"{tag} bench_torch.py exited {out.returncode}: "
+             f"{out.stderr[-3000:]}")
+    try:
+        last = json.loads(out.stdout.strip().splitlines()[-1])
+        res = json.loads(next(ln for ln in out.stderr.splitlines()
+                              if ln.startswith("# result "))[9:])
+    except (ValueError, IndexError, StopIteration) as e:
+        fail(f"{tag} unreadable output ({e}): {out.stdout[-2000:]}")
+    if set(last) != {"metric", "value", "unit", "vs_baseline"}:
+        fail(f"{tag} last line {last} lacks bench.py's four keys")
+    if not last["value"] > 0:
+        fail(f"{tag} fps {last['value']} <= 0")
+    cfg = load_config(BENCH[label])
+    iters = int(cfg["RO"]["particle_iter_lens"])
+    want = {"brick_eval": iters * (BENCH_FRAMES - 1),
+            "hash_table_grad": (2 * res["map_iters"]
+                                if cfg["grid"]["enc"] == "HashGrid" else 0)}
+    if res["tracked_frames"] != BENCH_FRAMES - 1:
+        fail(f"{tag} tracked {res['tracked_frames']} frames, expected "
+             f"{BENCH_FRAMES - 1}")
+    if res["launches"] != want:
+        fail(f"{tag} launches {res['launches']}, expected {want}")
+    if not res["rounds"] > 0:
+        fail(f"{tag} no mapping round ran")
+    q = {"ate_rmse_cm": res["ate_rmse_cm"],
+         "ate_rmse_cm_ro_only": res["ate_rmse_cm_ro_only"],
+         **{k: res["mesh"][k] for k in ("f1", "accuracy_cm",
+                                        "completion_cm")}}
+    line = {"bench": label, "config": rel, "fps": last["value"],
+            "vs_baseline": last["vs_baseline"], "frames": res["frames"],
+            "elapsed_s": res["elapsed_s"], "track_ms": res["track_ms"],
+            "ms_per_round": res["ms_per_round"], "rounds": res["rounds"],
+            "slow_frames": res["slow"], "sel_la_hit": res["sel_la_hit"],
+            "max_memory_allocated": res["max_memory_allocated"],
+            "launches": res["launches"], "map_iters": res["map_iters"],
+            "quality": q, "record_BENCH_r05": BENCH_RECORD,
+            "mesh_wall_s": res["mesh"]["wall_s"], "phase_wall_s": wall}
+    print(json.dumps({"bench_phase": line}), flush=True)
+    for key in ("ate_rmse_cm", "ate_rmse_cm_ro_only"):
+        if not q[key] < ATE_BAR_CM:
+            fail(f"{tag} {key} {q[key]} cm >= {ATE_BAR_CM}")
+    if not q["f1"] >= F1_BAR:
+        fail(f"{tag} mesh F1 {q['f1']} < {F1_BAR}")
+    return line
+
+
 def phase_live(torch):
     """[live]: LIVE_FRAMES frames of verify_small.yaml with the live
     viewer (LIVE_VIZ). After the run, before close(): /state.json holds the
@@ -2473,6 +2569,12 @@ def main():
     t0 = time.time()
     launches_live = phase_live(torch)
     wall["live"] = time.time() - t0
+    torch.cuda.empty_cache()
+    benches = {}
+    for label in BENCH:
+        t0 = time.time()
+        benches[label] = phase_bench(label)
+        wall[f"bench {label}"] = time.time() - t0
 
     brick["launches"] = launches_a["brick_eval"]
     brick["launches_by_slice"] = {"A": launches_a["brick_eval"],
@@ -2488,7 +2590,9 @@ def main():
                                   "render": render_launches["brick_eval"],
                                   "render eval": launches_re,
                                   "live": launches_live,
-                                  "sharded": launches_s["brick_eval"]}
+                                  "sharded": launches_s["brick_eval"],
+                                  **{f"bench {k}": v["launches"]["brick_eval"]
+                                     for k, v in benches.items()}}
     brick["sharded"] = sharded
     hashk["launches"] = launches_b["hash_table_grad"]
     hashk["launches_by_slice"] = {
@@ -2498,7 +2602,9 @@ def main():
         "gather": launches_g["hash_table_grad"],
         **{k: v["hash_table_grad"] for k, v in mode_launches.items()},
         "render": render_launches["hash_table_grad"],
-        "sharded": launches_s["hash_table_grad"]}
+        "sharded": launches_s["hash_table_grad"],
+        **{f"bench {k}": v["launches"]["hash_table_grad"]
+           for k, v in benches.items()}}
     hashk["sharded"] = [{"ranks": w["ranks"], "backend": w["backend"],
                          "N_per_rank": w["hash_shape"][0],
                          "max_abs_err": w["hash_max_abs_err"]}

@@ -220,6 +220,9 @@ class RemixFusionTorch:
         self.map_iters_done = 0
         self.ba_iters_done = 0
         self.round_ms = []
+        # host time (ms) of each track_frame call (the device work it
+        # queues is not waited for)
+        self.track_ms = []
         self.state_save_ms = []
         self.first_frame_losses = None
         # stage times and grids of the last final mesh (save_mesh_final)
@@ -262,6 +265,9 @@ class RemixFusionTorch:
         self._sel_reuse = max(1, int(vcfg.get("sel_reuse", 1)))
         self._sel_cache = None
         self.sel_reused = 0
+        # per new brick selection: 1 when the look-ahead one was used, 0
+        # when it was made at the frame itself (JAX stats['sel_la_hit'])
+        self.sel_la_hit = []
         # keyframe-only color fusion (volume.color_fuse: keyframes | all)
         self._color_fuse = str(vcfg.get("color_fuse", "keyframes"))
         if self._color_fuse not in ("keyframes", "all"):
@@ -442,7 +448,9 @@ class RemixFusionTorch:
 
     def track_frame(self, frame_id: int, batch):
         """Track frame `frame_id` and fuse it into the local volume; its
-        pose is harvested harvest_depth frames later (or by _harvest)."""
+        pose is harvested harvest_depth frames later (or by _harvest).
+        The call's host time goes to self.track_ms."""
+        t0 = time.perf_counter()
         # record_function spans name the stages in a torch.profiler trace
         # (tools/profile_slice.py); they cost ~1 us when no
         # profiler runs
@@ -489,6 +497,7 @@ class RemixFusionTorch:
                     origin, pred, np.asarray(self._get_frame(nxt)["depth"]),
                     self.K, phase, self._sel_reuse, update_seen=False)
                 self._lookahead = (nxt, origin, sel, phase)
+        self.track_ms.append(1000.0 * (time.perf_counter() - t0))
 
     def _select_bricks(self, frame_id: int, batch, init) -> torch.Tensor:
         """Brick rows (device int64) that frame_id fuses: the previous
@@ -508,7 +517,9 @@ class RemixFusionTorch:
             bricks, near_flat = la[2]
             mv._fs_phase = la[3] + self._sel_reuse
             mv.apply_seen(near_flat)
+            self.sel_la_hit.append(1)
         else:
+            self.sel_la_hit.append(0)
             bricks = mv.frame_bricks(init, np.asarray(batch["depth"]),
                                      self.K, fs_span=self._sel_reuse)
         ids = mv.brick_ids(bricks)

@@ -30,6 +30,54 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+def dev_time(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def on_card(e):
+    """Kernels and copies, not host ops or span ranges."""
+    return ("CUDA" in str(e.device_type) and not e.key.startswith(
+        ("slice.", "map.", "mesh.", "aten::")))
+
+
+def window_summary(prof, frames: int, rounds: int, wall_us: float) -> dict:
+    """A traced window of `frames` loop frames (`rounds` mapping rounds,
+    `wall_us` of host clock ending in a synchronise): wall and device busy
+    time per frame, the device's idle share, kernel launches per frame, the
+    host time of the slice.* spans per frame and of the map.* spans per
+    round, hash_table_grad launches and the 15 kernels with the most
+    device time (name, ms per frame, launches per frame)."""
+    avgs = prof.key_averages()
+    stages = {e.key: e.cpu_time_total / frames / 1e3 for e in avgs
+              if e.key.startswith("slice.") and not on_card(e)
+              and e.cpu_time_total > 0}
+    round_stages = {e.key: e.cpu_time_total / max(rounds, 1) / 1e3
+                    for e in avgs if e.key.startswith("map.")
+                    and not on_card(e) and e.cpu_time_total > 0}
+    kernels = sorted(((e.key[:120], dev_time(e) / frames / 1e3,
+                       e.count / frames)
+                      for e in avgs if on_card(e) and dev_time(e) > 0),
+                     key=lambda k: -k[1])
+    busy_us = sum(dev_time(e) for e in avgs if on_card(e))
+    launches = sum(e.count for e in avgs
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC")) / frames
+    return {
+        "wall_ms_per_frame": wall_us / frames / 1e3,
+        "device_busy_ms_per_frame": busy_us / frames / 1e3,
+        "device_idle_share": 1.0 - busy_us / wall_us,
+        "kernel_launches_per_frame": launches,
+        "stage_host_ms_per_frame": stages,
+        "mapping_rounds_in_window": rounds,
+        "round_stage_host_ms_per_round": round_stages,
+        "hash_table_grad_launches_in_window": sum(
+            e.count for e in avgs
+            if on_card(e) and "hash_table_grad_kernel" in e.key),
+        "top_device_kernels_ms_per_frame": kernels[:15],
+    }
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=os.path.join(
@@ -75,44 +123,11 @@ def main():
         torch.cuda.synchronize()
         end_us = (time.perf_counter() - t0) * 1e6
 
-    def dev_time(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    def on_card(e):  # kernels and copies, not host ops or span ranges
-        return ("CUDA" in str(e.device_type) and not e.key.startswith(
-            ("slice.", "map.", "mesh.", "aten::")))
-
-    avgs = prof.key_averages()
-    stages = {e.key: e.cpu_time_total / frames / 1e3 for e in avgs
-              if e.key.startswith("slice.") and not on_card(e)
-              and e.cpu_time_total > 0}
-    round_stages = {e.key: e.cpu_time_total / max(rounds, 1) / 1e3
-                    for e in avgs if e.key.startswith("map.")
-                    and not on_card(e) and e.cpu_time_total > 0}
-    kernels = sorted(((e.key[:120], dev_time(e) / frames / 1e3,
-                       e.count / frames)
-                      for e in avgs if on_card(e) and dev_time(e) > 0),
-                     key=lambda k: -k[1])
-    busy_us = sum(dev_time(e) for e in avgs if on_card(e))
-    launches = sum(e.count for e in avgs
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC")) / frames
     summary = {
         "device": torch.cuda.get_device_name(0),
         "config": os.path.relpath(args.config, ROOT),
         "profiled_frames": frames,
-        "wall_ms_per_frame": wall_us / frames / 1e3,
-        "device_busy_ms_per_frame": busy_us / frames / 1e3,
-        "device_idle_share": 1.0 - busy_us / wall_us,
-        "kernel_launches_per_frame": launches,
-        "stage_host_ms_per_frame": stages,
-        "mapping_rounds_in_window": rounds,
-        "round_stage_host_ms_per_round": round_stages,
-        "hash_table_grad_launches_in_window": sum(
-            e.count for e in avgs
-            if on_card(e) and "hash_table_grad_kernel" in e.key),
-        "top_device_kernels_ms_per_frame": kernels[:15],
+        **window_summary(prof, frames, rounds, wall_us),
         "end_of_run": {
             "wall_ms": end_us / 1e3,
             "mesh_stage_host_ms": {

@@ -24,7 +24,9 @@ PORT_FILES = sorted(
     glob.glob(os.path.join(ROOT, "remixfusion_tpu_torch", "**", "*.py"),
               recursive=True)
     + [os.path.join(ROOT, f) for f in ("chip_smoke.py", "run_torch.py",
-                                       "rendering_eval_torch.py")])
+                                       "rendering_eval_torch.py",
+                                       "bench_torch.py",
+                                       "scripts/torch/ab_eval.py")])
 # the modules of the rendering and tools slice, each checked by name below
 RENDER_SLICE = ("utils/metrics.py", "utils/lpips.py", "utils/plot.py",
                 "core/traj.py", "tools/eval_ate.py", "tools/rendering_eval.py",
