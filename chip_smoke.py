@@ -167,6 +167,47 @@ prints no result line):
      rendered here): brick_eval and hash_table_grad never launched, at
      least GATHER_MIN_RECENTRES re-centres, full and RO-only ATE below
      3 cm, meshes inside the bound;
+  11b. this slice's phases, each at its config's full width with only the
+     frame count cut, each ending in finalize, each printing its full and
+     RO-only ATE, its launches (brick_eval's per instantiation too) and
+     its wall ("[<phase>] phase wall"):
+     corridor hashgrid, corridor damp, corridor gate, corridor noise: the
+     corridor with the HashGrid field (corridor_hashgrid.yaml: 16 levels,
+     the finer ones capped at 2^19 rows), with tracking.speed_damp 0.5
+     (corridor_damp.yaml), with volume.fuse_fit_gate [0.18, 0.30]
+     (corridor_gate.yaml) and under sensor noise with RO.cut_dist 4.5
+     (corridor_noise.yaml, the noise drawn after the cache), each over
+     VARIANT_FRAMES frames of the corridor's render cache (none rendered
+     here): brick_eval launched 20 times per tracked frame, hash_table_grad
+     twice per map iteration with HashGrid and never otherwise, full and
+     RO-only ATE below 3 cm, meshes inside the bound, the host damp of
+     every extrapolation equal to tracking.speed_damp (the port applies it
+     ungated, as the JAX pipeline does), every frame's fusion weight in
+     [0.05, 1] (1 without the gate; min, median and max printed), the
+     re-centres printed; with HashGrid, hash_table_grad against its plain
+     version and index_add_ on the inputs of the last map step (phase 5's
+     check and timing) and the RO poses against [corridor]'s first
+     VARIANT_FRAMES (the largest difference printed: a finding, not a
+     bar); under noise the ATE beside the JAX record's drift (NOISE_RECORD);
+     one {"variant": ...} JSON line each;
+     f32 windows: synthetic_bench.yaml with volume.track_dtype float32, 30
+     frames: every brick_eval launch through the float32-window
+     instantiation (nearest/float32, 20 per tracked frame), ATE below 2
+     cm, the mesh phase of 2b; the float32 kernel against its plain
+     version on the last frame's tiers (phase 3's check), and against the
+     bfloat16 kernel (the largest cost difference, whether the best
+     candidate and the improving set change; no bar);
+     720p refstride and 720p: synthetic_720p_refstride.yaml (RO.pix_ref
+     null: absolute strides, tiers of 880 / 3,600 / 14,400 pixels) and
+     synthetic_720p.yaml (the default pix_ref: slice A's 300 / 1,200 /
+     4,800 pixels, checked), 30 frames of 1280x720 each: ATE below 2 cm,
+     the mesh phase of 2b, the tiers' strides and pixels printed; with
+     pix_ref null brick_eval against its plain version at those tiers;
+     refine: configs/Synthetic/ab_refine.yaml's whole 40-frame sequence
+     (verify_small with mapping.final_iters 200): the map steps finalize
+     runs counted (200), ATE below 2 cm, the mesh phase of 2b with F1 >=
+     REFINE_F1_BAR, accuracy and completion printed beside the JAX record
+     (REFINE_RECORD);
   12. the other slices, at their configs' widths through RemixFusionTorch.run
      as in phase 2, each with its launch and ATE checks (below 2 cm):
      triplane (configs/Synthetic/bench_triplane.yaml, 40 frames): every
@@ -247,15 +288,25 @@ CONFIGS = {"A": os.path.join(SYN, "synthetic_bench.yaml"),
            "dense": os.path.join(SYN, "synthetic_bench.yaml"),
            "brick": os.path.join(SYN, "synthetic_bench.yaml"),
            "ab_triplane": os.path.join(SYN, "ab_triplane.yaml"),
-           "more": os.path.join(SYN, "synthetic_more.yaml")}
+           "more": os.path.join(SYN, "synthetic_more.yaml"),
+           "f32": os.path.join(SYN, "synthetic_bench.yaml"),
+           "720p_refstride": os.path.join(SYN,
+                                          "synthetic_720p_refstride.yaml"),
+           "720p": os.path.join(SYN, "synthetic_720p.yaml"),
+           "refine": os.path.join(SYN, "ab_refine.yaml")}
 N_FRAMES = {"A": 60, "B": 60, "triplane": 40, "fast": 40, "dense": 30,
-            "brick": 30, "ab_triplane": 20, "more": 20}
+            "brick": 30, "ab_triplane": 20, "more": 20, "f32": 30,
+            "720p_refstride": 30, "720p": 30, "refine": 40}
 OVERRIDES = {
     "dense": {"volume": {"brick_fusion": False}},
     "brick": {"RO": {"eval_mode": "brick", "brick_radius": 3,
                      "tsdf_interp": "trilinear"},
               "volume": {"sel_reuse": 2}},
+    "f32": {"volume": {"track_dtype": "float32"}},
 }
+# the printed name of a slice, where it is not "slice <label>"
+TAGS = {"f32": "f32 windows", "720p_refstride": "720p refstride",
+        "720p": "720p", "refine": "refine"}
 ATE_BAR_CM = 2.0
 # the real-layout phases: config, layout written, dataset name override,
 # colour size (H, W) when it differs from depth, orbit degrees per frame.
@@ -282,6 +333,21 @@ CORRIDOR_MESH_PAD = 0.5
 GATHER = os.path.join(SYN, "corridor_v25g.yaml")
 GATHER_FRAMES = 50
 GATHER_MIN_RECENTRES = 2
+# the corridor's variants, each over VARIANT_FRAMES frames of the
+# corridor's render cache: the HashGrid field on the corridor's 2^19 table,
+# the host and device speed damp, the fitness-gated fusion, sensor noise
+# (applied after the cache) with RO.cut_dist 4.5
+VARIANTS = {"corridor hashgrid": os.path.join(SYN, "corridor_hashgrid.yaml"),
+            "corridor damp": os.path.join(SYN, "corridor_damp.yaml"),
+            "corridor gate": os.path.join(SYN, "corridor_gate.yaml"),
+            "corridor noise": os.path.join(SYN, "corridor_noise.yaml")}
+VARIANT_FRAMES = 60
+NOISE_RECORD = ("the JAX record drifts 0.5 -> 22 cm over 325 frames of the "
+                "800-frame walk (BASELINE.md:957-966)")
+# [refine]: ab_refine.yaml's mesh bar and the JAX record
+# (BASELINE.md:674-683: verify_small with 200 final_iters)
+REFINE_F1_BAR = 0.95
+REFINE_RECORD = {"accuracy_cm": 1.155, "completion_cm": 1.641, "f1": 0.9751}
 # the DenseGrid table at synthetic_bench.yaml's widths (desired 200, base
 # 16, 4 dense levels: 16^3, 59^3, 218^3, 800^3 rows) and the points of the
 # render backward of a map step
@@ -453,12 +519,16 @@ def count_dense_fusions(slam, counts):
     slam.mv.frame_tiles = counted
 
 
-def phase_slice(torch, label):
+def tag_of(label):
+    return TAGS.get(label, f"slice {label}")
+
+
+def phase_slice(torch, label, hook=None):
     """Drive slice `label` through RemixFusionTorch.run with every kernel's
     launch count zeroed just before and read just after: brick_eval
     launched 20 times per tracked frame in eval_mode pallas and never
     otherwise, hash_table_grad twice per map iteration with a hash-grid
-    field and never otherwise."""
+    field and never otherwise. hook(slam), when given, runs before."""
     import numpy as np
 
     from remixfusion_tpu_torch.models.encodings import HashGridEncoding
@@ -471,7 +541,8 @@ def phase_slice(torch, label):
     t0 = time.time()
     slam = RemixFusionTorch(cfg, device="cuda")
     slam.preload(frames + 1)
-    print(f"[slice {label}] {os.path.relpath(CONFIGS[label], ROOT)} "
+    tag = tag_of(label)
+    print(f"[{tag}] {os.path.relpath(CONFIGS[label], ROOT)} "
           f"overrides {OVERRIDES.get(label, {})}: grid.enc "
           f"{cfg['grid']['enc']}, RO.eval_mode {slam.tracker.eval_mode} "
           f"(brick_radius {slam.tracker.brick_r}, "
@@ -483,17 +554,22 @@ def phase_slice(torch, label):
     fusions = {}
     if not slam.mv.brick:
         count_dense_fusions(slam, fusions)
+    if hook is not None:
+        hook(slam)
     torch.cuda.reset_peak_memory_stats()
     be.brick_eval_volume.launches = 0
+    be.brick_eval_volume.launches_by_kind.clear()
     he.hash_table_grad.launches = 0
     out = slam.run(max_frames=frames)
     out["dense_fusions"] = fusions
     launches = {"brick_eval": be.brick_eval_volume.launches,
-                "hash_table_grad": he.hash_table_grad.launches}
+                "hash_table_grad": he.hash_table_grad.launches,
+                "brick_eval_by_kind": dict(
+                    be.brick_eval_volume.launches_by_kind)}
     peak = torch.cuda.max_memory_allocated()
     iters = int(cfg["RO"]["particle_iter_lens"])
     ffl = slam.first_frame_losses
-    print(f"[slice {label}] frames={out['frames']} tracked="
+    print(f"[{tag}] frames={out['frames']} tracked="
           f"{out['tracked_frames']} ms_per_frame={out['ms_per_frame']} "
           f"(host clock over {out['timed_frames']} frames with "
           f"{out['timed_rounds']} mapping rounds, ending in "
@@ -504,7 +580,7 @@ def phase_slice(torch, label):
           f"map_iters={out['map_iters']} ba_iters={out['ba_iters']} "
           f"launches={launches} max_memory_allocated={peak}"
           + (f" dense fusions {fusions}" if fusions else ""), flush=True)
-    print(f"[slice {label}] first-frame map loss every 25 iterations: "
+    print(f"[{tag}] first-frame map loss every 25 iterations: "
           f"{[float(v) for v in ffl[::25]]} last {float(ffl[-1])}",
           flush=True)
     want = (iters * out["tracked_frames"]
@@ -535,9 +611,10 @@ def phase_slice(torch, label):
     return slam, out, launches
 
 
-def phase_mesh(slam, out, label):
+def phase_mesh(slam, out, label, f1_bar=F1_BAR):
     """The end-of-run mesh of slice `label`: files and bounds, the card's
-    SDF grid against a CPU recompute, and the mesh quality."""
+    SDF grid against a CPU recompute, and the mesh quality (F1 at least
+    f1_bar)."""
     import numpy as np
 
     from remixfusion_tpu_torch.tools.eval_recon import mesh_quality
@@ -588,8 +665,8 @@ def phase_mesh(slam, out, label):
                          for k in ("query", "marching", "write", "cull")},
             "quality_eval_s": time.time() - t0, **q}
     print(json.dumps({"mesh": line}), flush=True)
-    if not q["f1"] >= F1_BAR:
-        fail(f"slice {label}: mesh F1 {q['f1']} < {F1_BAR}")
+    if not q["f1"] >= f1_bar:
+        fail(f"slice {label}: mesh F1 {q['f1']} < {f1_bar}")
     return line
 
 
@@ -616,23 +693,27 @@ def tier_cases(torch, slam, frames):
     return cases
 
 
-def check_brick_case(torch, args, phase, split_for=None):
+def check_brick_case(torch, args, phase, split_for=None,
+                     track_dtype="bfloat16"):
     """brick_eval_volume against its plain version on one tier's inputs,
     in both interpolation modes: same bits on a second call, the same
     guard positions, max |d| < TOL_MAX and mean < TOL_MEAN; then its
-    device and call times, the plain version's and the bound. split_for:
-    brick_eval_volume's (a rank's slice of a table)."""
+    device and call times, the plain version's and the bound. split_for
+    and track_dtype: brick_eval_volume's (a rank's slice of a table; the
+    instantiation that scores the windows rounded through bfloat16 or as
+    float32)."""
     from remixfusion_tpu_torch.ops import brick_eval as be
 
     params, pix, base, tsdf, layout, table = args
     C, P = table.shape[1], pix.shape[0]
-    windows = be.fetch_windows(tsdf, layout, base)
+    windows = be.fetch_windows(tsdf, layout, base, track_dtype)
+    kw = {"split_for": split_for, "track_dtype": track_dtype}
     shapes = []
     for interp in ("nearest", "trilinear"):
-        got = be.brick_eval_volume(*args, interp=interp, split_for=split_for)
-        again = be.brick_eval_volume(*args, interp=interp,
-                                     split_for=split_for)
-        ref = be.brick_eval_volume_reference(*args, interp=interp)
+        got = be.brick_eval_volume(*args, interp=interp, **kw)
+        again = be.brick_eval_volume(*args, interp=interp, **kw)
+        ref = be.brick_eval_volume_reference(*args, interp=interp,
+                                             track_dtype=track_dtype)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             fail(f"brick_eval gave other bits on a second call at C={C} "
@@ -648,9 +729,9 @@ def check_brick_case(torch, args, phase, split_for=None):
             fail(f"brick_eval disagrees with its plain version at C={C} "
                  f"P={P} {interp} ({phase}): max {err_max} mean {err_mean}")
         t = measure(torch, lambda: be.brick_eval_volume(
-            *args, interp=interp, split_for=split_for), 200, 20)
+            *args, interp=interp, **kw), 200, 20)
         p_ms = time_cuda(torch, lambda: be.brick_eval_volume_reference(
-            *args, interp=interp), 20, 3)
+            *args, interp=interp, track_dtype=track_dtype), 20, 3)
         reached = int(be.pair_terms(params, pix, windows, table,
                                     interp=interp)[2].sum())
         ops = C * P * OPS_PAIR + reached * OPS_LOOKUP[interp]
@@ -663,6 +744,7 @@ def check_brick_case(torch, args, phase, split_for=None):
         gt = pix[ok, 3]
         shapes.append({
             "phase": phase, "C": C, "P": P, "interp": interp,
+            "track_dtype": track_dtype,
             "device_ms": t["device_ms"], "call_ms": t["call_ms"],
             "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -673,7 +755,8 @@ def check_brick_case(torch, args, phase, split_for=None):
             "gt_max": float(gt.max()) if gt.numel() else 0.0,
             "gt_ones": int((gt == 1.0).sum()),
             "gt_negative": int((gt < 0).sum())})
-        print(f"[kernel] brick_eval ({phase}) C={C} P={P} {interp}: "
+        print(f"[kernel] brick_eval ({phase}) C={C} P={P} {interp} "
+              f"{track_dtype} windows: "
               f"max|d|={err_max:.3e} mean|d|={err_mean:.3e} device "
               f"{t['device_ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
               f"plain {p_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms; "
@@ -871,11 +954,10 @@ def phase_real(torch, label):
     captured = []
     kernel = rotracker.brick_eval_volume
 
-    def capture(params, pix, base, tsdf, layout_, table, interp, split_for):
+    def capture(params, pix, base, tsdf, layout_, table, **kw):
         captured.append((params, pix, base, tsdf, layout_, table))
         del captured[:-iters]
-        return kernel(params, pix, base, tsdf, layout_, table,
-                      interp=interp, split_for=split_for)
+        return kernel(params, pix, base, tsdf, layout_, table, **kw)
 
     rotracker.brick_eval_volume = capture
     try:
@@ -1038,15 +1120,14 @@ def phase_corridor(torch):
 
     kernel = rotracker.brick_eval_volume
 
-    def capture(params, pix, base, tsdf, layout, table, interp, split_for):
+    def capture(params, pix, base, tsdf, layout, table, **kw):
         if "frame" in armed and len(captured) < iters:
             if "tsdf" not in armed:
                 armed["tsdf"] = tsdf.clone()
                 armed["origin"] = slam.mv.vol_bnds[:, 0].copy()
             captured.append((params.clone(), pix.clone(), base.clone(),
                              armed["tsdf"], layout, table))
-        return kernel(params, pix, base, tsdf, layout, table, interp=interp,
-                      split_for=split_for)
+        return kernel(params, pix, base, tsdf, layout, table, **kw)
 
     slam.save_state = keep_at_save
     slam.mv.check_move = arm_on_recentre
@@ -1445,27 +1526,16 @@ def phase_gather(torch):
     zeroed just before the run and read just after: brick_eval and
     hash_table_grad never; at least GATHER_MIN_RECENTRES re-centres; full
     and RO-only ATE below 3 cm; meshes inside the bound."""
-    import copy
-
     import numpy as np
 
     from remixfusion_tpu_torch.config import load_config
-    from remixfusion_tpu_torch.datasets import get_dataset
-    from remixfusion_tpu_torch.datasets.base import update_cam
     from remixfusion_tpu_torch.ops import brick_eval as be
     from remixfusion_tpu_torch.ops import hash_enc as he
     from remixfusion_tpu_torch.slam import RemixFusionTorch
 
     cfg = load_config(GATHER)
     cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke", "gather")
-    probe = copy.deepcopy(cfg)
-    update_cam(probe["cam"])
-    ds = get_dataset(probe)
-    missing = [i for i in range(GATHER_FRAMES + 1)
-               if not os.path.exists(ds._disk_cache_path(i))]
-    if missing:
-        fail(f"gather: frames {missing} are not in the corridor's render "
-             f"cache")
+    require_cached(cfg, GATHER_FRAMES + 1, "gather")
     t0 = time.time()
     slam = RemixFusionTorch(cfg, device="cuda")
     rendered = slam.dataset.render_missing(range(GATHER_FRAMES + 1))
@@ -1509,6 +1579,280 @@ def phase_gather(torch):
         fail("gather: non-finite pose")
     check_corridor_meshes(out, slam, "gather")
     return out, launches
+
+
+def require_cached(cfg, n, label):
+    """Fail unless frames 0..n-1 of cfg's walk are in the corridor's render
+    cache."""
+    import copy
+
+    from remixfusion_tpu_torch.datasets import get_dataset
+    from remixfusion_tpu_torch.datasets.base import update_cam
+
+    probe = copy.deepcopy(cfg)
+    update_cam(probe["cam"])
+    ds = get_dataset(probe)
+    missing = [i for i in range(n)
+               if not os.path.exists(ds._disk_cache_path(i))]
+    if missing:
+        fail(f"{label}: frames {missing} are not in the corridor's render "
+             f"cache")
+
+
+def phase_variant(torch, label, ro_corridor):
+    """[corridor hashgrid | damp | gate | noise]: VARIANTS[label] over
+    VARIANT_FRAMES frames that the corridor phase rendered into the disk
+    cache (none rendered here), with the launch counts zeroed just before
+    the run and read just after: brick_eval 20 times per tracked frame,
+    hash_table_grad twice per map iteration with the HashGrid field and
+    never otherwise; full and RO-only ATE below 3 cm; meshes inside the
+    bound. Recorded during the run: the damp of every host extrapolation
+    (all tracking.speed_damp: the host damp is ungated) and every frame's
+    fusion weight. With HashGrid, the inputs of the last map step's two
+    table-gradient calls are kept, and the RO poses are compared with
+    [corridor]'s first frames (ro_corridor). Prints a {"variant": ...}
+    JSON line; returns (stats, launches, captured hash_table_grad
+    calls)."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.config import load_config
+    from remixfusion_tpu_torch.models.encodings import HashGridEncoding
+    from remixfusion_tpu_torch.ops import brick_eval as be
+    from remixfusion_tpu_torch.ops import hash_enc as he
+    from remixfusion_tpu_torch.slam import RemixFusionTorch
+    from remixfusion_tpu_torch.slam import pipeline
+
+    tag, n = f"[{label}]", VARIANT_FRAMES
+    cfg = load_config(VARIANTS[label])
+    cfg["data"]["output"] = os.path.join(ROOT, "build", "smoke",
+                                         label.replace(" ", "_"))
+    require_cached(cfg, n + 1, label)
+    t0 = time.time()
+    slam = RemixFusionTorch(cfg, device="cuda")
+    rendered = slam.dataset.render_missing(range(n + 1))
+    slam.preload(n + 1)
+    t_setup = time.time() - t0
+    if rendered:
+        fail(f"{label}: {rendered} frames rendered, expected none")
+    enc = slam.scene.embed_res_fn
+    hashgrid = isinstance(enc, HashGridEncoding)
+    damp = float(cfg["tracking"].get("speed_damp", 1.0))
+    gate = cfg["volume"].get("fuse_fit_gate")
+    noise = cfg["data"]["synthetic"].get("sensor_noise", 0)
+    table = ""
+    if hashgrid:
+        rows = np.diff(enc.offsets).tolist()
+        table = (f" ({enc.n_levels} levels, hash_size "
+                 f"{cfg['grid']['hash_size']}: rows per level {rows}, "
+                 f"{enc.offsets[-1]} in all)")
+    print(f"{tag} {os.path.relpath(VARIANTS[label], ROOT)}: grid.enc "
+          f"{cfg['grid']['enc']}{table}, tracking.speed_damp {damp}, "
+          f"volume.fuse_fit_gate {gate}, sensor_noise {noise}, RO.cut_dist "
+          f"{cfg['RO']['cut_dist']}; {n + 1} frames read from the "
+          f"corridor's render cache, 0 rendered; set-up {t_setup:.1f} s",
+          flush=True)
+
+    damps, weights = [], []
+    const_speed_np, obs_weight = pipeline.const_speed_np, slam._obs_weight
+
+    def record_damp(*args, **kw):
+        damps.append(kw["damp"])
+        return const_speed_np(*args, **kw)
+
+    def record_weight(res):
+        weights.append(obs_weight(res))
+        return weights[-1]
+
+    pipeline.const_speed_np = record_damp
+    slam._obs_weight = record_weight
+    try:
+        with HashCalls(keep=2) as hc:
+            be.brick_eval_volume.launches = 0
+            be.brick_eval_volume.launches_by_kind.clear()
+            he.hash_table_grad.launches = 0
+            t0 = time.time()
+            out = slam.run(max_frames=n)
+            t_run = time.time() - t0
+            launches = {"brick_eval": be.brick_eval_volume.launches,
+                        "hash_table_grad": he.hash_table_grad.launches,
+                        "brick_eval_by_kind": dict(
+                            be.brick_eval_volume.launches_by_kind)}
+    finally:
+        pipeline.const_speed_np = const_speed_np
+    w = torch.stack([x.reshape(()) for x in weights]).float().cpu().numpy()
+    recentres = len(slam.mv.frame_to_vrange)
+    at = sorted(s for s, _ in slam.mv.frame_to_vrange)[1:] + [
+        slam.mv.start_id]
+    record = {"variant": label, "frames": out["frames"],
+              "ate_rmse_cm": out["ate_rmse_cm"],
+              "ate_rmse_cm_ro_only": out["ate_rmse_cm_ro_only"],
+              "ms_per_frame": out["ms_per_frame"],
+              "ms_per_round": out["ms_per_round"],
+              "rounds": out["mapping_rounds"],
+              "map_iters": out["map_iters"], "recentres": recentres,
+              "recentre_frames": at, "host_damp_calls": len(damps),
+              "host_damps": sorted(set(damps)),
+              "fusion_weight": {"min": float(w.min()),
+                                "median": float(np.median(w)),
+                                "max": float(w.max()), "frames": len(w)},
+              "launches": launches, "run_s": t_run}
+    print(f"{tag} frames={out['frames']} tracked={out['tracked_frames']} "
+          f"ms_per_frame={out['ms_per_frame']} ms_per_round="
+          f"{out['ms_per_round']} rounds={out['mapping_rounds']} "
+          f"ate_rmse_cm={out['ate_rmse_cm']} ate_rmse_cm_ro_only="
+          f"{out['ate_rmse_cm_ro_only']} launches={launches} recentres="
+          f"{recentres} at frames {at}; host damp on {len(damps)} "
+          f"extrapolations: {sorted(set(damps))}; fusion weight min "
+          f"{w.min():.4f} median {np.median(w):.4f} max {w.max():.4f} over "
+          f"{len(w)} frames; wall: run {t_run:.1f} s", flush=True)
+    iters = int(cfg["RO"]["particle_iter_lens"])
+    want = {"brick_eval": iters * out["tracked_frames"],
+            "hash_table_grad": 2 * out["map_iters"] if hashgrid else 0}
+    if {k: launches[k] for k in want} != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    if not damps or set(damps) != {damp}:
+        fail(f"{label}: host damps {sorted(set(damps))} over {len(damps)} "
+             f"extrapolations, expected {damp} on every one")
+    if not ((w >= 0.05) & (w <= 1.0)).all() or (not gate and w.min() < 1):
+        fail(f"{label}: fusion weights outside the gate's range")
+    for key in ("ate_rmse_cm_ro_only", "ate_rmse_cm"):
+        if not out[key] < CORRIDOR_ATE_BAR_CM:
+            fail(f"{label}: {key} {out[key]} cm >= {CORRIDOR_ATE_BAR_CM}")
+    if not np.isfinite(slam.trajectory(out["frames"])).all():
+        fail(f"{label}: non-finite pose")
+    check_corridor_meshes(out, slam, label)
+    if noise:
+        print(f"{tag} RO-only ATE {out['ate_rmse_cm_ro_only']:.4f} cm over "
+              f"{n} frames under sensor noise; {NOISE_RECORD}", flush=True)
+    if hashgrid:
+        ro = slam.RO_c2w_data[:n]
+        d = np.abs(ro - ro_corridor[:n])
+        record["ro_vs_corridor_max_abs"] = float(d.max())
+        record["ro_vs_corridor_bitwise"] = bool(
+            np.array_equal(ro, ro_corridor[:n]))
+        print(f"{tag} RO poses of frames 0..{n - 1} against [corridor]'s "
+              f"(CPGrid): largest difference {float(d.max()):.3e}, "
+              f"translation {float(d[:, :3, 3].max()):.3e} m, bitwise "
+              f"equal: {record['ro_vs_corridor_bitwise']} (JAX: bitwise "
+              f"equal, BASELINE.md:944-946)", flush=True)
+        if len(hc.calls) != 2:
+            fail(f"{label}: captured {len(hc.calls)} hash_table_grad calls, "
+                 f"expected 2")
+    print(json.dumps({"variant": record}), flush=True)
+    return out, launches, list(hc.calls)
+
+
+def compare_window_dtypes(torch, cases):
+    """The float32-window instantiation against the bfloat16 one on the
+    same tiers, both lookup modes (information, no bar): the largest cost
+    difference where neither is guarded, whether the best candidate and
+    the set of improving candidates (cost below the identity's) change."""
+    from remixfusion_tpu_torch.ops import brick_eval as be
+
+    out = []
+    for args in cases:
+        C, P = args[5].shape[1], args[1].shape[0]
+        for interp in ("nearest", "trilinear"):
+            f32, bf16 = (be.brick_eval_volume(*args, interp=interp,
+                                              track_dtype=dt)
+                         for dt in ("float32", "bfloat16"))
+            keep = (f32 < 1e6) & (bf16 < 1e6)
+            d = (f32 - bf16).abs()[keep]
+            rec = {"C": C, "P": P, "interp": interp,
+                   "max_abs_diff": float(d.max()) if d.numel() else 0.0,
+                   "guards_equal": bool(torch.equal(f32 >= 1e6,
+                                                    bf16 >= 1e6)),
+                   "best_same": int(f32.argmin()) == int(bf16.argmin()),
+                   "improving_same": bool(torch.equal(f32 < f32[0],
+                                                      bf16 < bf16[0]))}
+            out.append(rec)
+            print(f"[kernel] brick_eval float32 vs bfloat16 windows C={C} "
+                  f"P={P} {interp}: max|d|={rec['max_abs_diff']:.3e}, "
+                  f"guards equal {rec['guards_equal']}, best candidate "
+                  f"same {rec['best_same']}, improving set same "
+                  f"{rec['improving_same']}", flush=True)
+    return out
+
+
+def phase_f32(torch):
+    """[f32 windows]: synthetic_bench.yaml with volume.track_dtype float32
+    through phase_slice: every brick_eval launch through the float32-window
+    instantiation; the kernel against its plain version on the last
+    frame's tiers, and against the bfloat16 instantiation."""
+    slam, out, launches = phase_slice(torch, "f32")
+    want = {f"{slam.tracker.tsdf_interp}/float32": launches["brick_eval"]}
+    if launches["brick_eval_by_kind"] != want:
+        fail(f"f32 windows: launches by instantiation "
+             f"{launches['brick_eval_by_kind']}, expected {want}")
+    phase_mesh(slam, out, "f32")
+    cases = tier_cases(torch, slam, out["frames"])
+    shapes = []
+    for args in cases:
+        shapes += check_brick_case(torch, args, "f32 windows",
+                                   track_dtype="float32")
+    return launches, shapes, compare_window_dtypes(torch, cases)
+
+
+def phase_720p(torch, label, slice_a_pixels):
+    """[720p refstride] / [720p]: 1280x720 frames through phase_slice and
+    the mesh phase, then the last frame's tiers: with RO.pix_ref null
+    (absolute strides) the kernel against its plain version at the new
+    tier sizes; with the default pix_ref the tiers' pixel counts equal
+    slice A's (slice_a_pixels)."""
+    slam, out, launches = phase_slice(torch, label)
+    tr = slam.tracker
+    cases = tier_cases(torch, slam, out["frames"])
+    pixels = [a[1].shape[0] for a in cases]
+    tiers = [(tr.tier_strides[lv], p) for lv, p in zip(tr.class_level,
+                                                        pixels)]
+    print(f"[{tag_of(label)}] {slam.dataset.W}x{slam.dataset.H}, RO.pix_ref "
+          f"{slam.config['RO'].get('pix_ref', 'default')}: tier (stride "
+          f"rows, cols) -> pixels {tiers}", flush=True)
+    shapes = []
+    if label == "720p" and pixels != slice_a_pixels:
+        fail(f"720p: tier pixels {pixels}, expected slice A's "
+             f"{slice_a_pixels}")
+    phase_mesh(slam, out, label)
+    if label != "720p":
+        for args in cases:
+            shapes += check_brick_case(torch, args, "720p refstride")
+    return launches, shapes
+
+
+def phase_refine(torch):
+    """[refine]: ab_refine.yaml's whole sequence through phase_slice, the
+    map steps of finalize's offline refinement (mapping.final_iters)
+    counted; the mesh scored by the mesh phase with F1 >= REFINE_F1_BAR
+    and printed beside the JAX record. Returns the launches."""
+    steps = {}
+
+    def count_final_steps(slam):
+        finalize = slam.finalize
+
+        def counted(n, stats):
+            start = slam.map_iters_done
+            res = finalize(n, stats)
+            steps["final"] = slam.map_iters_done - start
+            return res
+
+        slam.finalize = counted
+
+    slam, out, launches = phase_slice(torch, "refine", count_final_steps)
+    m = slam.config["mapping"]
+    final_iters, iters = int(m["final_iters"]), int(m["iters"])
+    want = -(-final_iters // iters) * iters
+    print(f"[refine] mapping.final_iters {final_iters}: {steps.get('final')}"
+          f" map steps at finalize (expected {want})", flush=True)
+    if steps.get("final") != want:
+        fail(f"refine: {steps.get('final')} final map steps, expected "
+             f"{want}")
+    if out["frames"] != slam.dataset.num_frames:
+        fail(f"refine: {out['frames']} of {slam.dataset.num_frames} frames")
+    mesh = phase_mesh(slam, out, "refine", REFINE_F1_BAR)
+    print(f"[refine] mesh accuracy {mesh['accuracy_cm']:.4f} cm, completion "
+          f"{mesh['completion_cm']:.4f} cm, F1 {mesh['f1']:.4f}; JAX record "
+          f"(BASELINE.md:674-683) {REFINE_RECORD}", flush=True)
+    return launches
 
 
 def phase_render(torch, slam, out):
@@ -2517,6 +2861,7 @@ def main():
 
     t0 = time.time()
     slam, out_c, launches_c, kept, cases = phase_corridor(torch)
+    ro_corridor = slam.RO_c2w_data[:VARIANT_FRAMES].copy()
     wall["corridor"] = time.time() - t0
     t0 = time.time()
     for args in cases:
@@ -2533,6 +2878,40 @@ def main():
     _, launches_g = phase_gather(torch)
     wall["gather"] = time.time() - t0
     torch.cuda.empty_cache()
+
+    # this slice's phases: the corridor's variants, the float32 windows,
+    # the 720p tiers and the final refinement
+    def end_phase(name, t0):
+        wall[name] = time.time() - t0
+        print(f"[{name}] phase wall {wall[name]:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+
+    new_launches = {}
+    for label in VARIANTS:
+        t0 = time.time()
+        _, new_launches[label], calls = phase_variant(
+            torch, label, ro_corridor)
+        if calls:
+            hashk["shapes"] += phase_hash_kernel(
+                torch, calls, table="HashGrid corridor")
+        del calls
+        end_phase(label, t0)
+    t0 = time.time()
+    new_launches["f32 windows"], shapes, f32_vs_bf16 = phase_f32(torch)
+    brick["shapes"] += shapes
+    brick["f32_vs_bf16"] = f32_vs_bf16
+    end_phase("f32 windows", t0)
+    slice_a_pixels = [s["P"] for s in brick["shapes"]
+                      if s["phase"] == "A" and s["interp"] == "nearest"]
+    for label in ("720p_refstride", "720p"):
+        t0 = time.time()
+        new_launches[tag_of(label)], shapes = phase_720p(
+            torch, label, slice_a_pixels)
+        brick["shapes"] += shapes
+        end_phase(tag_of(label), t0)
+    t0 = time.time()
+    new_launches["refine"] = phase_refine(torch)
+    end_phase("refine", t0)
 
     mode_launches = {}
     for label in ("triplane", "fast", "dense", "brick", "ab_triplane",
@@ -2592,7 +2971,12 @@ def main():
                                   "live": launches_live,
                                   "sharded": launches_s["brick_eval"],
                                   **{f"bench {k}": v["launches"]["brick_eval"]
-                                     for k, v in benches.items()}}
+                                     for k, v in benches.items()},
+                                  **{k: v["brick_eval"]
+                                     for k, v in new_launches.items()}}
+    brick["launches_by_kind"] = {
+        "A": launches_a["brick_eval_by_kind"],
+        **{k: v["brick_eval_by_kind"] for k, v in new_launches.items()}}
     brick["sharded"] = sharded
     hashk["launches"] = launches_b["hash_table_grad"]
     hashk["launches_by_slice"] = {
@@ -2604,7 +2988,8 @@ def main():
         "render": render_launches["hash_table_grad"],
         "sharded": launches_s["hash_table_grad"],
         **{f"bench {k}": v["launches"]["hash_table_grad"]
-           for k, v in benches.items()}}
+           for k, v in benches.items()},
+        **{k: v["hash_table_grad"] for k, v in new_launches.items()}}
     hashk["sharded"] = [{"ranks": w["ranks"], "backend": w["backend"],
                          "N_per_rank": w["hash_shape"][0],
                          "max_abs_err": w["hash_max_abs_err"]}

@@ -19,8 +19,10 @@
 //   - windows are read from the volume inside the kernel: with a per-pixel
 //     integer base the 4^3 cells of pixel p are gathered from the
 //     brick-major volume (bm_vox_flat's index arithmetic; a window may cross
-//     a brick face on any axis) and rounded through bf16 in registers, which
-//     equals .to(bfloat16).to(float32);
+//     a brick face on any axis) and, for a bfloat16 track view, rounded
+//     through bf16 in registers, which equals .to(bfloat16).to(float32); a
+//     float32 track view scores the cells as they are (a template argument:
+//     one instantiation per lookup mode and rounding);
 //   - each thread owns kCand = 2 candidates (their poses stay in registers,
 //     the pixel's attributes read from shared memory serve both), a CTA of
 //     8 warps owns 512 candidates and a range of pixels; the pixel axis is
@@ -203,7 +205,7 @@ __device__ __forceinline__ void stage_tile(float* s_attr, float* s_win,
                                               i % kCells));
 }
 
-template <bool kTrilinear>
+template <bool kTrilinear, bool kRoundBf16>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
 brick_eval_kernel(const float* __restrict__ params,
                   const float* __restrict__ pix, int pix_stride, Volume vol,
@@ -262,8 +264,9 @@ brick_eval_kernel(const float* __restrict__ params,
       cp_async_wait<0>();
     }
     // each thread rounds the cells it copied itself through bf16
-    for (int i = tid; i < n_here * kCells; i += kThreads)
-      s_win[cur][i] = __bfloat162float(__float2bfloat16_rn(s_win[cur][i]));
+    if (kRoundBf16)
+      for (int i = tid; i < n_here * kCells; i += kThreads)
+        s_win[cur][i] = __bfloat162float(__float2bfloat16_rn(s_win[cur][i]));
     __syncthreads();
 
     for (int p = 0; p < n_here; ++p) {
@@ -339,7 +342,9 @@ brick_eval_kernel(const float* __restrict__ params,
 //   partial: scratch of 2 * splits * n_cand + cblocks * splits floats, with
 //     cblocks = ceil(n_cand / 512);
 //   done: cblocks zeroed counters (left zeroed again by the launch);
-//   splits * pix_per_split >= n_pix > (splits - 1) * pix_per_split.
+//   splits * pix_per_split >= n_pix > (splits - 1) * pix_per_split;
+//   round_bf16: round the window cells through bf16 (a bfloat16 track
+//     view) or score them as float32.
 extern "C" int brick_eval_launch(const float* params, const float* pix,
                                  int pix_stride, const float* vol,
                                  long long vol_stride, const int* base,
@@ -347,19 +352,18 @@ extern "C" int brick_eval_launch(const float* params, const float* pix,
                                  float* partial, unsigned* done, float* out,
                                  int n_cand, int n_pix, int splits,
                                  int pix_per_split, int trilinear,
-                                 void* stream) {
+                                 int round_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int per_cta = kThreads * kCand;
   const dim3 grid((n_cand + per_cta - 1) / per_cta, splits);
   const Volume v{vol, vol_stride, base, b, BY, BZ};
   float* count0 = partial + (size_t)2 * splits * n_cand;
-  if (trilinear)
-    brick_eval_kernel<true><<<grid, kThreads, 0, s>>>(
-        params, pix, pix_stride, v, table, partial, count0, done, out, n_cand,
-        n_pix, pix_per_split);
-  else
-    brick_eval_kernel<false><<<grid, kThreads, 0, s>>>(
-        params, pix, pix_stride, v, table, partial, count0, done, out, n_cand,
-        n_pix, pix_per_split);
+  auto kernel = trilinear ? (round_bf16 ? brick_eval_kernel<true, true>
+                                        : brick_eval_kernel<true, false>)
+                          : (round_bf16 ? brick_eval_kernel<false, true>
+                                        : brick_eval_kernel<false, false>);
+  kernel<<<grid, kThreads, 0, s>>>(params, pix, pix_stride, v, table,
+                                   partial, count0, done, out, n_cand, n_pix,
+                                   pix_per_split);
   return static_cast<int>(cudaGetLastError());
 }

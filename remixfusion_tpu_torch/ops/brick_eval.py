@@ -8,11 +8,13 @@ mean |tsdf - expected| per candidate with the low-count guard.
 The kernel is `csrc/brick_eval.cu` (built for sm_90a with nvcc, bound with
 ctypes); its header gives the bound and the design. Its entry is
 `brick_eval_volume`, the tracker's: each pixel's window is gathered from
-the brick-major volume inside the kernel at the pixel's integer base and
-rounded through bfloat16 (the quad-pack mirror of the TPU path is not
-ported: it only fed VMEM). One launch per call, deterministic (fixed-order
-reduction, no atomics on the sums). Its plain version is `fetch_windows`
-followed by `brick_eval_reference`. No PyTorch call computes this function,
+the brick-major volume inside the kernel at the pixel's integer base and,
+for the tracker's default bfloat16 track view, rounded through bfloat16; a
+float32 track view scores the cells unrounded, as the JAX package does
+(the quad-pack mirror of the TPU path is not ported: it only fed VMEM).
+One launch per call, deterministic (fixed-order reduction, no atomics on
+the sums). Its plain version is `fetch_windows` followed by
+`brick_eval_reference`. No PyTorch call computes this function,
 so there is no library yardstick.
 
 `brick_eval` takes the JAX wrapper's layout, windows given as bricks
@@ -142,22 +144,31 @@ def pair_terms(params, pix, bricks, table, *, interp: str = "nearest"):
     return vals, reached & in_brick, reached
 
 
-def fetch_windows(tsdf_bm, layout, base) -> torch.Tensor:
+TRACK_DTYPES = ("bfloat16", "float32")
+
+
+def fetch_windows(tsdf_bm, layout, base,
+                  track_dtype: str = "bfloat16") -> torch.Tensor:
     """Per-pixel 4^3 windows [P, 64] of the brick-major volume tsdf_bm
     [NB, b^3] (layout (b, BY, BZ)) at integer bases [P, 3], cell order
-    (dx*4 + dy)*4 + dz, rounded through bfloat16 like the JAX track volume
-    and widened back to float32: the plain version's gather."""
-    idx = window_index(layout, base, BRICK_SIDE)
-    return tsdf_bm.reshape(-1)[idx].to(torch.bfloat16).to(torch.float32)
+    (dx*4 + dy)*4 + dz, in the track view's dtype (bfloat16: rounded like
+    the JAX track volume and widened back to float32; float32: as they
+    are): the plain version's gather."""
+    win = tsdf_bm.reshape(-1)[window_index(layout, base, BRICK_SIDE)]
+    if track_dtype == "bfloat16":
+        return win.to(torch.bfloat16).to(torch.float32)
+    return win
 
 
 def brick_eval_volume_reference(params, pix, base, tsdf_bm, layout, table,
-                                *, interp: str = "nearest") -> torch.Tensor:
+                                *, interp: str = "nearest",
+                                track_dtype: str = "bfloat16"
+                                ) -> torch.Tensor:
     """Plain version of brick_eval_volume: the gather, then the windowed
     plain version."""
-    return brick_eval_reference(params, pix,
-                                fetch_windows(tsdf_bm, layout, base), table,
-                                interp=interp)
+    return brick_eval_reference(
+        params, pix, fetch_windows(tsdf_bm, layout, base, track_dtype),
+        table, interp=interp)
 
 
 def _lib():
@@ -167,7 +178,7 @@ def _lib():
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, i, vp, ctypes.c_longlong, vp, i, i, i, vp,
-                       vp, vp, vp, i, i, i, i, i, vp]
+                       vp, vp, vp, i, i, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -215,13 +226,17 @@ def _check(params, pix, table, interp, extra):
 
 
 def brick_eval_volume(params, pix, base, tsdf_bm, layout, table, *,
-                      interp: str = "nearest", split_for: int | None = None):
+                      interp: str = "nearest", split_for: int | None = None,
+                      track_dtype: str = "bfloat16"):
     """Cost [C] of every candidate, each pixel's window read from the
     brick-major volume tsdf_bm [NB, b^3] (layout (b, BY, BZ)) at its
-    integer base (int32 [P, 3]) and rounded through bfloat16 — the tracker's
-    entry. Every window must lie inside the volume (the tracker clamps its
-    bases so). On a CPU tensor: brick_eval_volume_reference; on a CUDA
-    tensor: the kernel, or an error.
+    integer base (int32 [P, 3]) — the tracker's entry. track_dtype is the
+    tracker's view of the volume: "bfloat16" rounds the window cells
+    through bfloat16, "float32" scores them as they are (one kernel
+    instantiation per lookup mode and track dtype, each with its count in
+    brick_eval_volume.launches_by_kind). Every window must lie inside the
+    volume (the tracker clamps its bases so). On a CPU tensor:
+    brick_eval_volume_reference; on a CUDA tensor: the kernel, or an error.
 
     split_for: the candidate count whose launch splits the pixel axis
     (default C). A candidate's cost depends on the split alone, so a slice
@@ -232,6 +247,9 @@ def brick_eval_volume(params, pix, base, tsdf_bm, layout, table, *,
     from remixfusion_tpu_torch.ops import build
 
     dev = _check(params, pix, table, interp, tsdf_bm)
+    if track_dtype not in TRACK_DTYPES:
+        raise ValueError(f"track_dtype must be one of {TRACK_DTYPES}, got "
+                         f"{track_dtype!r}")
     b, BY, BZ = (int(v) for v in layout)
     if (base.dtype != torch.int32 or base.shape != (pix.shape[0], 3)
             or base.device != dev or tsdf_bm.dim() != 2
@@ -241,7 +259,8 @@ def brick_eval_volume(params, pix, base, tsdf_bm, layout, table, *,
             f"volume {tuple(tsdf_bm.shape)}, layout {(b, BY, BZ)}")
     if dev.type == "cpu":
         return brick_eval_volume_reference(params, pix, base, tsdf_bm,
-                                           (b, BY, BZ), table, interp=interp)
+                                           (b, BY, BZ), table, interp=interp,
+                                           track_dtype=track_dtype)
     if not (params.is_contiguous() and table.is_contiguous()
             and pix.stride(1) == 1 and base.is_contiguous()
             and tsdf_bm.is_contiguous()):
@@ -262,14 +281,20 @@ def brick_eval_volume(params, pix, base, tsdf_bm, layout, table, *,
                 BY, BZ, table.data_ptr(), partial.data_ptr(),
                 _counters(dev, cblocks).data_ptr(), out.data_ptr(), n_cand,
                 n_pix, splits, per, int(interp == "trilinear"),
+                int(track_dtype == "bfloat16"),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"brick_eval kernel launch failed: CUDA error {rc}")
     brick_eval_volume.launches += 1
+    kind = f"{interp}/{track_dtype}"
+    by_kind = brick_eval_volume.launches_by_kind
+    by_kind[kind] = by_kind.get(kind, 0) + 1
     return out
 
 
+# launches in all, and per instantiation ("nearest/bfloat16", ...)
 brick_eval_volume.launches = 0
+brick_eval_volume.launches_by_kind = {}
 
 
 def brick_eval(params, pix, bricks, table, *, interp: str = "nearest"):

@@ -255,8 +255,6 @@ class RemixFusionTorch:
         self._speed_damp = float(tcfg.get("speed_damp", 1.0))
         self._fit_lo = float(tcfg.get("damp_fit_lo", 0.15))
         self._fit_hi = float(tcfg.get("damp_fit_hi", 0.40))
-        # fitness of the last harvested frame (read only when damping)
-        self._last_fit = 0.0
         # look-ahead brick selection: (frame_id, origin, selection, phase)
         self._lookahead = None
         # brick selection reuse (volume.sel_reuse frames): (frame_id,
@@ -364,8 +362,6 @@ class RemixFusionTorch:
     def _harvest_one(self):
         frame_id, res, init = self._pending.pop(0)
         c2w = res.c2w.cpu().numpy()
-        fit = (float(res.origin_value) if self._speed_damp != 1.0
-               else 0.0)
         if not np.isfinite(c2w).all():
             # non-finite tracked pose (reference warns, slam.py:243-247):
             # substitute the host extrapolation and reset the device chain
@@ -378,10 +374,8 @@ class RemixFusionTorch:
             self._dev_pose_prev2 = dev
             self._dev_fit_prev = torch.zeros((), dtype=torch.float32,
                                              device=self.device)
-            fit = 0.0
         self._last_harvested = (self._last_harvested
                                 + [(frame_id, c2w)])[-2:]
-        self._last_fit = fit
         self.RO_c2w_data[frame_id] = c2w
         self.est_c2w_data[frame_id] = c2w
         if frame_id % self._kf_every != 0:
@@ -412,8 +406,9 @@ class RemixFusionTorch:
         """Pose of frame_id extrapolated from the last two harvested poses
         (const-speed delta per remaining frame); used for the re-center
         thresholds and the margin-padded brick selection. tracking.
-        speed_damp damps the translation through the device predictor's
-        fitness gate, on the last harvested frame's fitness."""
+        speed_damp damps the translation on every frame, ungated, as the
+        JAX pipeline's host extrapolation does (the device predictor keeps
+        its fitness gate)."""
         lh = self._last_harvested
         if not lh:
             return self.RO_c2w_data[0].copy()
@@ -421,16 +416,7 @@ class RemixFusionTorch:
             return lh[-1][1].copy()
         (_, p2), (i1, p1) = lh[0], lh[1]
         return const_speed_np(p1, p2, steps=max(frame_id - i1, 0),
-                              damp=self._gated_damp())
-
-    def _gated_damp(self) -> float:
-        """predict_const_speed's lambda: 1 up to fitness fit_lo, falling to
-        speed_damp at fit_hi and beyond."""
-        if self._speed_damp == 1.0:
-            return 1.0
-        u = min(max((self._last_fit - self._fit_lo)
-                    / (self._fit_hi - self._fit_lo), 0.0), 1.0)
-        return 1.0 - u * (1.0 - self._speed_damp)
+                              damp=self._speed_damp)
 
     def _predict_init(self) -> torch.Tensor:
         """Initial pose of the next dispatched frame from the device pose
@@ -1194,7 +1180,6 @@ class RemixFusionTorch:
                                          device=self.device)
         self._last_harvested = [(j, self.RO_c2w_data[j].copy())
                                 for j in range(max(i - 1, 0), i + 1)]
-        self._last_fit = 0.0
         self._pending = []
         self._pending_ba = None
         self._lookahead = None

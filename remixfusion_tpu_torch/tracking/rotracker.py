@@ -15,8 +15,9 @@ torch.Generator the caller owns.
 
 RO.eval_mode picks how a candidate is scored:
   - 'pallas' (the main path): the `brick_eval` kernel, which reads each
-    pixel's 4^3 TSDF window from the volume itself, rounded through
-    bfloat16 like the JAX track volume;
+    pixel's 4^3 TSDF window from the volume itself, in the track dtype
+    (rounded through bfloat16 by default, like the JAX track volume;
+    unrounded with volume.track_dtype float32);
   - 'gather' (the default, the reference's exact lookup): one volume read
     per (candidate, pixel) at the rounded voxel of the moved vertex, in
     plain PyTorch (JAX _eval_tier);
@@ -25,8 +26,8 @@ RO.eval_mode picks how a candidate is scored:
     trilinear, in plain PyTorch (JAX _eval_tier_brick; tiers of >= 2048
     pixels compute camera coordinates through per-candidate rotation
     matrices, as JAX does there).
-The plain modes read a track view of the volume in volume.track_dtype
-(float32 for gather, bfloat16 otherwise by default, as the JAX pipeline).
+Every mode reads the volume in volume.track_dtype (float32 for gather,
+bfloat16 otherwise by default, as the JAX pipeline).
 The volume is brick-major [NB, b^3] or dense [X, Y, Z] (layout (1, Y, Z));
 voxels are addressed with ops.tsdf.bm_vox_flat either way.
 
@@ -88,9 +89,8 @@ def track_dtype(cfg) -> str:
 def check_modes(cfg):
     """Raise ValueError for RO / volume settings no tracker runs: an
     unknown eval_mode or tsdf_interp, trilinear with gather (JAX raises
-    alike), brick_radius < 1, a track dtype other than float32 / bfloat16,
-    and pallas with a float32 view (the kernel rounds its windows through
-    bfloat16)."""
+    alike), brick_radius < 1, and a track dtype other than float32 /
+    bfloat16."""
     ro = cfg["RO"]
     mode = ro.get("eval_mode", "gather")
     if mode not in EVAL_MODES:
@@ -107,11 +107,6 @@ def check_modes(cfg):
     dt = track_dtype(cfg)
     if dt not in ("float32", "bfloat16"):
         raise ValueError(f"unknown volume.track_dtype {dt!r}")
-    if mode == "pallas" and dt != "bfloat16":
-        raise ValueError(
-            "RO.eval_mode pallas reads a bfloat16 track view (the "
-            "brick_eval kernel rounds its windows through bfloat16); "
-            "volume.track_dtype float32 needs eval_mode gather or brick")
 
 
 class ROTracker:
@@ -568,7 +563,8 @@ class ROTracker:
                                       self.brick_layout,
                                       self.pst_t_rank[cls][slab],
                                       interp=self.tsdf_interp,
-                                      split_for=self.pst_t[cls].shape[2])
+                                      split_for=self.pst_t[cls].shape[2],
+                                      track_dtype=self.track_dtype)
         else:
             score = (self.eval_gather if self.eval_mode == "gather"
                      else self.eval_brick)
@@ -581,8 +577,9 @@ class ROTracker:
         return self.comm.all_gather_cat(value)
 
     def track_view(self, tsdf):
-        """The volume as track() reads it: [NB, b^3] float32 for the kernel,
-        flat in the track dtype for the plain modes."""
+        """The volume as track() reads it: [NB, b^3] float32 for the kernel
+        (which applies the track dtype to the cells it reads), flat in the
+        track dtype for the plain modes."""
         if self.eval_mode == "pallas":
             return tsdf.reshape(-1, self.brick_layout[0] ** 3)
         vol = tsdf.reshape(-1)

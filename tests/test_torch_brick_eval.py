@@ -65,9 +65,10 @@ def test_brick_eval_rejects_bad_input():
         be.brick_eval(params.double(), pix, bricks, table)
 
 
-def _jax_windows(tsdf_bm, layout, base):
+def _jax_windows(tsdf_bm, layout, base, track_dtype="bfloat16"):
     """The JAX tracker's brick-major window gather (no quad-pack mirror),
-    rounded through bfloat16 as its track volume is."""
+    rounded through bfloat16 as its default track volume is, or as they are
+    from a float32 track volume."""
     b, BY, BZ = layout
     dims = (tsdf_bm.shape[0] // (BY * BZ) * b, BY * b, BZ * b)
     jt = JaxTracker(tiny_config(RO={"eval_mode": "pallas"}), 48, 64,
@@ -75,7 +76,9 @@ def _jax_windows(tsdf_bm, layout, base):
                     brick_layout=layout)
     win = jt._fetch_windows((jnp.asarray(tsdf_bm).reshape(-1), None),
                             jnp.asarray(base), 4)
-    return np.asarray(win.astype(jnp.bfloat16).astype(jnp.float32))
+    if track_dtype == "bfloat16":
+        win = win.astype(jnp.bfloat16)
+    return np.asarray(win.astype(jnp.float32))
 
 
 def test_fetch_windows_match_jax_brick_major():
@@ -93,28 +96,41 @@ def test_fetch_windows_match_jax_brick_major():
     # the rounding is real: the field is not bf16-exact
     t = torch.from_numpy(tsdf_bm)
     assert not torch.equal(t.to(torch.bfloat16).to(torch.float32), t)
+    # a float32 track view reads the cells as they are
+    got = be.fetch_windows(t, layout, torch.from_numpy(base), "float32")
+    ref = _jax_windows(tsdf_bm, layout, base, "float32")
+    assert np.array_equal(got.numpy().view(np.uint32), ref.view(np.uint32))
 
 
-@pytest.mark.parametrize("interp", ["nearest", "trilinear"])
-def test_brick_eval_volume_matches_jax(interp):
+@pytest.mark.parametrize(
+    "interp,track_dtype", [("nearest", "bfloat16"), ("trilinear", "bfloat16"),
+                           ("nearest", "float32"), ("trilinear", "float32")],
+    ids=["nearest", "trilinear", "nearest-float32", "trilinear-float32"])
+def test_brick_eval_volume_matches_jax(interp, track_dtype):
     """The volume entry's costs against the JAX brick_eval (interpret mode)
-    fed the JAX tracker's bf16 windows: the bar of the windowed test."""
+    fed the JAX tracker's windows, bf16-rounded or unrounded float32 as the
+    track dtype says: the bar of the windowed test."""
     n_cand, n_pix = 256, 256
     params, pix, base, tsdf_bm, layout, table = brick_volume_inputs(
         n_cand, n_pix, 9, interp)
     bricks = np.zeros((n_pix, 128), np.float32)
-    bricks[:, :64] = _jax_windows(tsdf_bm, layout, base)
+    bricks[:, :64] = _jax_windows(tsdf_bm, layout, base, track_dtype)
     ref = np.asarray(jax_be.brick_eval(
         jnp.asarray(params), jnp.asarray(pix), jnp.asarray(bricks),
         jnp.asarray(table), n_cand=n_cand, n_pix=n_pix, interp=interp))
-    out = be.brick_eval_volume(*(torch.from_numpy(a) for a in (
-        params, pix, base, tsdf_bm)), layout, torch.from_numpy(table),
-        interp=interp).numpy()
+    args = [torch.from_numpy(a) for a in (params, pix, base, tsdf_bm)]
+    out = be.brick_eval_volume(*args, layout, torch.from_numpy(table),
+                               interp=interp,
+                               track_dtype=track_dtype).numpy()
     guard_j, guard_t = ref >= 1e6, out >= 1e6
     assert np.array_equal(guard_j, guard_t)
     assert guard_t.sum() < n_cand
     d = np.abs(out - ref)[~guard_t]
     assert d.max() < 5e-3 and d.mean() < 1e-4, (d.max(), d.mean())
+    if track_dtype == "float32":  # the window rounding moves the costs
+        other = be.brick_eval_volume(*args, layout, torch.from_numpy(table),
+                                     interp=interp).numpy()
+        assert np.abs(other - out)[~guard_t].max() > 1e-4
 
 
 def test_brick_eval_volume_rejects_bad_input():
@@ -129,6 +145,9 @@ def test_brick_eval_volume_rejects_bad_input():
     with pytest.raises(ValueError):
         be.brick_eval_volume(params, pix, base, tsdf_bm, layout, table,
                              interp="cubic")
+    with pytest.raises(ValueError):
+        be.brick_eval_volume(params, pix, base, tsdf_bm, layout, table,
+                             track_dtype="float16")
 
 
 @pytest.mark.parametrize("n_cand,n_pix", [(10240, 300), (3072, 1200),

@@ -122,6 +122,40 @@ def test_brick_eval_volume_kernel_matches_plain(cuda_device, interp, n_cand,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("interp", ["nearest", "trilinear"])
+@pytest.mark.parametrize("n_cand,n_pix", [(10240, 300), (3072, 1200),
+                                          (1024, 4800)])
+def test_brick_eval_float32_windows_match_plain(cuda_device, interp, n_cand,
+                                                n_pix):
+    """The float32-window instantiation (a float32 track view: the cells
+    scored unrounded) against its plain version at the tier shapes, counted
+    under its own kind, and apart from the bfloat16 instantiation's costs
+    on a field that bfloat16 does not hold exactly."""
+    params, pix, base, tsdf_bm, layout, table = brick_volume_inputs(
+        n_cand, n_pix, 17, interp)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (params, pix, base, tsdf_bm)]
+    table = torch.from_numpy(table).to(cuda_device)
+    kind = f"{interp}/float32"
+    before = be.brick_eval_volume.launches_by_kind.get(kind, 0)
+    out = be.brick_eval_volume(*args, layout, table, interp=interp,
+                               track_dtype="float32")
+    again = be.brick_eval_volume(*args, layout, table, interp=interp,
+                                 track_dtype="float32")
+    rounded = be.brick_eval_volume(*args, layout, table, interp=interp)
+    torch.cuda.synchronize()
+    assert be.brick_eval_volume.launches_by_kind[kind] == before + 2
+    assert torch.equal(out, again)
+    ref = be.brick_eval_volume_reference(*args, layout, table, interp=interp,
+                                         track_dtype="float32")
+    assert torch.equal(out >= 1e6, ref >= 1e6)
+    keep = out < 1e6
+    d = (out - ref).abs()[keep]
+    assert d.max().item() < 5e-3 and d.mean().item() < 1e-4
+    assert not torch.equal(out, rounded)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["nearest", "trilinear"])
 def test_brick_eval_kernel_matches_plain(cuda_device, interp):
     """The kernel against its plain version at the finest tier's shape; the
     windowed entry has no kernel and raises on the card."""

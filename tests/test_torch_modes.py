@@ -209,8 +209,8 @@ def test_gather_matches_brick_at_small_search():
 
 def test_tracker_mode_checks_match_jax():
     """trilinear with gather raises ValueError in both packages; the port
-    also refuses eval_mode pallas on a float32 view (the kernel reads
-    bfloat16-rounded windows) and unknown modes."""
+    also refuses unknown modes; eval_mode pallas on a float32 view builds
+    in both."""
     ds = jax_dataset(_cfg("gather"))
     for cfg, jax_raises in ((_cfg("gather", interp="trilinear"), True),
                             (_cfg("nope"), False), (_cfg("brick", 0), False)):
@@ -222,9 +222,10 @@ def test_tracker_mode_checks_match_jax():
                 JaxTracker(cfg, ds.H, ds.W, ds.K(), (80, 80, 80), 0.05)
     cfg = _cfg("pallas")
     cfg["volume"]["track_dtype"] = "float32"
-    with pytest.raises(ValueError, match="bfloat16"):
-        ROTracker(cfg, ds.H, ds.W, ds.K(), (80, 80, 80), 0.05, (10, 8, 8),
-                  "cpu")
+    JaxTracker(cfg, ds.H, ds.W, ds.K(), (80, 80, 80), 0.05)
+    tt = ROTracker(cfg, ds.H, ds.W, ds.K(), (80, 80, 80), 0.05, (10, 8, 8),
+                   "cpu")
+    assert (tt.eval_mode, tt.track_dtype) == ("pallas", "float32")
 
 
 def test_brick_selector_fs_span_matches_jax():

@@ -21,7 +21,8 @@ Two views of the same 8-frame run:
 The corridor lockstep runs the same way on a small synthetic_large walk
 whose volume re-centres every few frames: the re-centre bookkeeping
 (vol_bnds, start_id, frame_to_vrange) must be bitwise the JAX one after
-every frame."""
+every frame; with tracking.speed_damp 0.5 the brick selections must be
+too."""
 
 import copy
 
@@ -44,6 +45,8 @@ torch.set_num_threads(1)
 
 N = 8
 N_CORRIDOR = 11
+# the damped walk re-centres later (the host extrapolation lags)
+N_DAMP = 16
 
 
 def _cfg(tmp, interp):
@@ -83,15 +86,28 @@ def _bounds(mv):
             {k: v.copy() for k, v in mv.frame_to_vrange.items()})
 
 
+def _brick_rows(j, frame_id):
+    """Row ids of the bricks the JAX pipeline selected for frame_id (its
+    padded selection without the -1 rows), or None when it selected none
+    at that frame."""
+    sc = j._sel_cache
+    if sc is None or sc[0] != frame_id:
+        return None
+    b = np.asarray(sc[2]).astype(np.int64)
+    b = b[(b >= 0).all(1)]
+    _, BY, BZ = j.mv.brick_layout()
+    return (b[:, 0] * BY + b[:, 1]) * BZ + b[:, 2]
+
+
 def _jax_run(interp, tmp, cfg=None, n=N):
     """The JAX pipeline's run of n frames, with its state before every
-    frame and its re-centre bookkeeping after it."""
+    frame, and its re-centre bookkeeping and brick selection after it."""
     cfg = _cfg(tmp, interp) if cfg is None else cfg
     j = RemixFusionTPU(copy.deepcopy(cfg))
     p0 = j._first_pose(j.dataset[0])
     j.est_c2w_data[0] = p0
     j.RO_c2w_data[0] = p0
-    before, tracked, bounds = {}, {}, {}
+    before, tracked, bounds, sel = {}, {}, {}, {}
     for i in range(1, n):
         init = (j.est_c2w_data[0] if j._dev_pose_prev is None
                 else j._predict_dev(j._dev_pose_prev, j._dev_pose_prev2,
@@ -107,11 +123,12 @@ def _jax_run(interp, tmp, cfg=None, n=N):
         j.track_frame(i, j.dataset[i])
         tracked[i] = np.asarray(j._pending_track[-1][1].c2w)
         bounds[i] = _bounds(j.mv)
+        sel[i] = _brick_rows(j, i)
     j._harvest_pending_track()
     after = _state_np(j.mv.state)
     j.close()
     return dict(cfg=cfg, n=n, before=before, tracked=tracked, after=after,
-                bounds=bounds,
+                bounds=bounds, sel=sel,
                 ro=j.RO_c2w_data.copy(), gt=j.pose_gt, tracker=j.tracker,
                 dataset=j.dataset)
 
@@ -123,9 +140,15 @@ def jax_runs(tmp_path_factory):
     def get(interp):
         if interp not in runs:
             tmp = tmp_path_factory.mktemp(interp)
-            runs[interp] = _jax_run(
-                "nearest", tmp, _corridor_cfg(tmp), N_CORRIDOR) \
-                if interp == "corridor" else _jax_run(interp, tmp)
+            if interp == "corridor":
+                runs[interp] = _jax_run("nearest", tmp, _corridor_cfg(tmp),
+                                        N_CORRIDOR)
+            elif interp == "damp":
+                cfg = _corridor_cfg(tmp)
+                cfg["tracking"]["speed_damp"] = 0.5
+                runs[interp] = _jax_run("nearest", tmp, cfg, N_DAMP)
+            else:
+                runs[interp] = _jax_run(interp, tmp)
         return runs[interp]
     return get
 
@@ -206,26 +229,49 @@ def test_slice_lockstep_matches_jax(jax_runs, interp, tmp_path):
     assert np.array_equal(s.mv.vol_bnds[:, 0], run["after"][3])
 
 
+def _same_bounds(run, i, s):
+    """The port's re-centre bookkeeping after frame i bitwise the JAX
+    pipeline's."""
+    bnds, start, hist = run["bounds"][i]
+    assert np.array_equal(s.mv.vol_bnds, bnds), i
+    assert s.mv.start_id == start, i
+    assert s.mv.frame_to_vrange.keys() == hist.keys(), i
+    for k, v in hist.items():
+        assert np.array_equal(s.mv.frame_to_vrange[k], v), (i, k)
+        assert np.array_equal(s.mv.frameid_to_vrange(k[1]), v)
+
+
 def test_corridor_lockstep_recentres_like_jax(jax_runs, tmp_path):
     """A synthetic_large walk re-centring at least twice in N_CORRIDOR
     frames, in lockstep:
     vol_bnds, start_id and frame_to_vrange bitwise the JAX pipeline's after
     every frame, the poses within the slice test's tolerance."""
     run = jax_runs("corridor")
-
-    def same_bounds(i, s):
-        bnds, start, hist = run["bounds"][i]
-        assert np.array_equal(s.mv.vol_bnds, bnds), i
-        assert s.mv.start_id == start, i
-        assert s.mv.frame_to_vrange.keys() == hist.keys(), i
-        for k, v in hist.items():
-            assert np.array_equal(s.mv.frame_to_vrange[k], v), (i, k)
-            assert np.array_equal(s.mv.frameid_to_vrange(k[1]), v)
-
-    s, fused_same = _lockstep(run, tmp_path, same_bounds)
+    s, fused_same = _lockstep(
+        run, tmp_path, lambda i, s: _same_bounds(run, i, s))
     assert len(s.mv.frame_to_vrange) >= 2
     assert fused_same >= 3
     assert np.array_equal(s.mv.vol_bnds[:, 0], run["after"][3])
+
+
+def test_damp_lockstep_selects_like_jax(jax_runs, tmp_path):
+    """The corridor walk at tracking.speed_damp 0.5 over N_DAMP frames, in
+    lockstep: fed the JAX pipeline's harvested poses and fitness, the
+    port's host extrapolation (damped on every frame, as JAX's, whatever
+    the fitness) makes bitwise the JAX pipeline's brick selection and
+    re-centre bookkeeping after every frame."""
+    run = jax_runs("damp")
+    assert run["cfg"]["tracking"]["speed_damp"] == 0.5
+
+    def same_selection(i, s):
+        _same_bounds(run, i, s)
+        fid, _, rows = s._sel_cache
+        assert fid == i and run["sel"][i] is not None, i
+        assert np.array_equal(rows.numpy(), run["sel"][i]), i
+
+    s, fused_same = _lockstep(run, tmp_path, same_selection)
+    assert len(s.mv.frame_to_vrange) >= 2
+    assert fused_same >= 3
 
 
 def test_slice_free_running_ate_matches_jax(jax_runs, tmp_path):
@@ -267,12 +313,11 @@ def test_const_speed_prediction_matches_jax(jax_runs):
         j.close()
 
 
-def test_host_prediction_gated_like_device(tmp_path):
-    """tracking.speed_damp < 1: the host extrapolation (re-center and brick
-    selection) damps through the device predictor's fitness gate, on the
-    last harvested frame's fitness: the two predictions agree over fitness
-    from 0 (no damping) to 0.6 (full damping)."""
-    from remixfusion_tpu_torch.core.pose import predict_const_speed
+def test_host_prediction_matches_jax(tmp_path):
+    """tracking.speed_damp 0.5: the host extrapolation (re-center and brick
+    selection) from the last two harvested poses, 1 to 3 frames ahead,
+    against the JAX pipeline's _const_speed_np at the same damp, which it
+    applies on every frame whatever the tracker's fitness."""
     cfg = _cfg(tmp_path, "nearest")
     cfg["tracking"]["speed_damp"] = 0.5
     s = RemixFusionTorch(cfg, device="cpu")
@@ -280,17 +325,59 @@ def test_host_prediction_gated_like_device(tmp_path):
     p1 = s.dataset[4]["c2w"].copy()
     p1[:3, 3] += np.array([0.03, -0.02, 0.01], np.float32)
     s._last_harvested = [(2, p2), (3, p1)]
-    gaps = []
-    for fit in np.linspace(0.0, 0.6, 13, dtype=np.float32):
-        s._last_fit = float(fit)
-        host = s._host_pose_estimate(4)
-        dev = predict_const_speed(
-            torch.tensor(p1), torch.tensor(p2), torch.tensor(fit),
-            const_speed=True, speed_damp=0.5).numpy()
-        assert np.abs(host - dev).max() < 1e-5, fit
-        gaps.append(np.abs(host[:3, 3] - p1[:3, 3]).max())
-    # the damping acts: the predicted step shrinks from fit_lo to fit_hi
-    assert gaps[0] > gaps[-1] * 1.5 and gaps[3] == gaps[0]
+    s._dev_fit_prev = torch.tensor(0.05)  # healthy: the device gate is off
+    for steps in (1, 2, 3):
+        host = s._host_pose_estimate(3 + steps)
+        ref = RemixFusionTPU._const_speed_np(p1, p2, steps=steps, damp=0.5)
+        assert np.abs(host - ref).max() < 1e-6, steps
+        full = RemixFusionTPU._const_speed_np(p1, p2, steps=steps)
+        assert np.abs(host[:3, 3] - full[:3, 3]).max() > 1e-3, steps
+
+
+def test_fuse_fit_gate_matches_jax(tmp_path):
+    """volume.fuse_fit_gate [0.18, 0.30]: frames tracked at fitness below,
+    inside and above the gate (each package's tracker replaced by one that
+    returns the frame's true pose and that fitness) fuse at weight 1, 0.5
+    and the 0.05 floor; each frame, fused from the JAX pipeline's state,
+    against the JAX pipeline's _obs_w fusion: weights bitwise, tsdf within
+    2e-5 (a fractional weight adds a rounding to the running mean: the
+    dense fusers' two-frame bar)."""
+    from remixfusion_tpu.tracking.rotracker import TrackResult as JaxResult
+
+    cfg = _cfg(tmp_path, "nearest")
+    cfg["volume"]["fuse_fit_gate"] = [0.18, 0.30]
+    j = RemixFusionTPU(copy.deepcopy(cfg))
+    p0 = j._first_pose(j.dataset[0])
+    j.est_c2w_data[0] = p0
+    j.RO_c2w_data[0] = p0
+    s = RemixFusionTorch(copy.deepcopy(cfg), device="cpu")
+    weights = []
+    obs_weight = s._obs_weight
+    s._obs_weight = lambda res: weights.append(obs_weight(res)) or \
+        weights[-1]
+    for i, fit, w_new in ((1, 0.1, 1.0), (2, 0.24, 0.5), (3, 0.5, 0.05)):
+        pose = j.dataset[i]["c2w"]
+        # the JAX track program is traced with the fake baked in: rebuild
+        # it for every frame
+        j.tracker._track = lambda *a, pose=pose, fit=fit: JaxResult(
+            jnp.asarray(pose), a[-1], jnp.asarray(True), jnp.float32(fit))
+        j.__dict__.pop("_track_jits", None)
+        j.__dict__.pop("_tf_fns", None)
+        s.tracker.track = lambda *a, pose=pose, fit=fit, **k: TrackResult(
+            torch.tensor(pose), None, True, torch.tensor(fit))
+        s.mv.state = volume_state_from_numpy(*_state_np(j.mv.state), "cpu")
+        w0 = np.asarray(j.mv.state.weight)
+        j.track_frame(i, j.dataset[i])
+        s.track_frame(i, s.dataset[i])
+        ref = _state_np(j.mv.state)
+        tsdf, weight = s.mv.state.tsdf.numpy(), s.mv.state.weight.numpy()
+        assert np.array_equal(weight, ref[1]), i
+        assert np.abs(tsdf - ref[0]).max() <= 2e-5, i
+        # voxels first seen by this frame take its gated weight
+        fresh = (w0 == 0) & (weight > 0)
+        assert fresh.sum() > 100 and np.allclose(weight[fresh], w_new), i
+        assert abs(float(weights[-1]) - w_new) < 1e-6, i
+    j.close()
 
 
 def test_tum_layout_run_matches_jax(tmp_path):

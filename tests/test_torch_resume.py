@@ -219,7 +219,7 @@ def test_pose_chain_rebuilt_from_ro_rows(saved, tmp_path):
     assert not np.array_equal(slam2.est_c2w_data[i], ro[i])
     assert np.array_equal(slam2._dev_pose_prev.numpy(), ro[i])
     assert np.array_equal(slam2._dev_pose_prev2.numpy(), ro[i - 1])
-    assert float(slam2._dev_fit_prev) == 0.0 and slam2._last_fit == 0.0
+    assert float(slam2._dev_fit_prev) == 0.0
     assert [j for j, _ in slam2._last_harvested] == [i - 1, i]
     for j, p in slam2._last_harvested:
         assert np.array_equal(p, ro[j])

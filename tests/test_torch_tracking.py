@@ -238,27 +238,110 @@ def test_perturbed_draw_ranges():
 def test_tracker_rejects_unported_modes():
     """Every eval_mode and brick_radius of the JAX tracker builds (gather,
     brick at r = 3, pallas, which reads 4^3 windows whatever the radius,
-    as in JAX); the settings no tracker runs raise ValueError: trilinear
-    with gather (JAX raises alike), an unknown mode, and pallas on a
-    float32 track view (the kernel rounds its windows through
-    bfloat16)."""
+    as in JAX, on a bfloat16 or a float32 track view); the settings no
+    tracker runs raise ValueError: trilinear with gather (JAX raises
+    alike) and an unknown mode."""
     K = np.eye(3, dtype=np.float32)
-    for ro, dtype in (({"eval_mode": "gather"}, "float32"),
-                      ({"eval_mode": "brick", "brick_radius": 3},
-                       "bfloat16"),
-                      ({"eval_mode": "pallas", "brick_radius": 3},
-                       "bfloat16")):
-        tt = ROTracker(tiny_config(RO=ro), 48, 64, K, (80, 80, 80), 0.05,
-                       (10, 8, 8), "cpu")
+    for ro, vol, dtype in (
+            ({"eval_mode": "gather"}, {}, "float32"),
+            ({"eval_mode": "brick", "brick_radius": 3}, {}, "bfloat16"),
+            ({"eval_mode": "pallas", "brick_radius": 3}, {}, "bfloat16"),
+            ({"eval_mode": "pallas"}, {"track_dtype": "float32"},
+             "float32")):
+        tt = ROTracker(tiny_config(RO=ro, volume=vol), 48, 64, K,
+                       (80, 80, 80), 0.05, (10, 8, 8), "cpu")
         assert (tt.eval_mode, tt.track_dtype) == (ro["eval_mode"], dtype)
         assert tt.brick_r == ro.get("brick_radius", 2)
     for ro, vol in (({"eval_mode": "gather", "tsdf_interp": "trilinear"},
                      {}),
-                    ({"eval_mode": "bricks"}, {}),
-                    ({"eval_mode": "pallas"}, {"track_dtype": "float32"})):
+                    ({"eval_mode": "bricks"}, {})):
         with pytest.raises(ValueError):
             ROTracker(tiny_config(RO=ro, volume=vol), 48, 64, K,
                       (80, 80, 80), 0.05, (10, 8, 8), "cpu")
+
+
+@pytest.mark.parametrize("interp", ["nearest", "trilinear"])
+@pytest.mark.parametrize("level", [4, 1])
+def test_pallas_tier_on_float32_view_matches_jax(level, interp):
+    """eval_mode pallas with volume.track_dtype float32: one tier's costs
+    (score_tier, the tracker's call of brick_eval_volume) against JAX's
+    _eval_tier_pallas (the Pallas kernel in interpret mode) on the same
+    float32 view, pose and table slab: the windows are scored unrounded
+    in both, held to the brick_eval bar; the bfloat16 view's costs
+    differ."""
+    cfg = _cfg(interp)
+    cfg["volume"]["track_dtype"] = "float32"
+    ds = jax_dataset(cfg)
+    mv = _jax_volume(copy.deepcopy(cfg), ds, n_frames=5)
+    jt = JaxTracker(copy.deepcopy(cfg), ds.H, ds.W, ds.K(), mv.dims,
+                    mv.voxel_size, brick_layout=mv.brick_layout())
+    tt = ROTracker(copy.deepcopy(cfg), ds.H, ds.W, ds.K(), mv.dims,
+                   mv.voxel_size, mv.brick_layout(), "cpu")
+    assert tt.track_dtype == "float32"
+    state = volume_state_from_numpy(
+        np.asarray(mv.state.tsdf), np.asarray(mv.state.weight),
+        np.asarray(mv.state.color), np.asarray(mv.state.origin), "cpu")
+    f = ds[5]
+    c2w = f["c2w"].copy()
+    c2w[:3, 3] += np.array([0.01, -0.008, 0.006], np.float32)
+    R, T = c2w[:3, :3], c2w[:3, 3]
+    ss = np.full(6, 0.02, np.float32)
+    cls = {4: 0, 2: 1, 1: 2}[level]
+    ref = np.asarray(jax.jit(lambda: jt._eval_tier_pallas(
+        jt.pst_t[cls][0], level, 0, jnp.asarray(R), jnp.asarray(T),
+        jnp.asarray(ss), (None, None, jnp.asarray(f["depth"])),
+        (mv.state.tsdf.reshape(-1), None), mv.state.origin))())
+    args = (level, 0, torch.tensor(R), torch.tensor(T), torch.tensor(ss),
+            tt.vertex_normal_maps(torch.tensor(f["depth"])))
+    got = tt.score_tier(cls, 0, *args, tt.track_view(state.tsdf),
+                        state.origin).numpy()
+    assert got.shape == ref.shape
+    assert np.array_equal(got >= 1e6, ref >= 1e6)
+    keep = ref < 1e6
+    assert keep.sum() > 0.9 * len(ref)
+    d = np.abs(got[keep] - ref[keep])
+    assert d.max() < 5e-3 and d.mean() < 1e-4, (d.max(), d.mean())
+    tt.track_dtype = "bfloat16"
+    rounded = tt.score_tier(cls, 0, *args, tt.track_view(state.tsdf),
+                            state.origin).numpy()
+    assert not np.array_equal(rounded, got)
+
+
+@pytest.mark.parametrize("pix_ref", ["default", None])
+def test_tier_strides_at_720p_match_jax(pix_ref):
+    """RO.pix_ref at 1280x720: the tier strides, pixel counts and valid
+    masks bitwise the JAX tracker's (vertices within 1e-6), with the
+    default [480, 640] (VGA's 300 / 1,200 / 4,800 pixels) and with null
+    (absolute strides 32 / 16 / 8)."""
+    ro = {"eval_mode": "pallas"}
+    if pix_ref != "default":
+        ro["pix_ref"] = pix_ref
+    cfg = tiny_config(RO=ro)
+    H, W = 720, 1280
+    K = np.array([[800.0, 0, 639.5], [0, 800.0, 359.5], [0, 0, 1]],
+                 np.float32)
+    jt = JaxTracker(copy.deepcopy(cfg), H, W, K, (80, 80, 80), 0.05)
+    tt = ROTracker(copy.deepcopy(cfg), H, W, K, (80, 80, 80), 0.05,
+                   (10, 8, 8), "cpu")
+    assert tt.tier_strides == jt.tier_strides
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    depth = 2.0 + 0.3 * np.sin(xx / 97.0) * np.cos(yy / 61.0)
+    vn = tt.vertex_normal_maps(torch.tensor(depth))
+    counts = []
+    for level in tt.class_level:
+        for level_index in (0, 5):
+            vj, _, okj = (np.asarray(a) for a in jax.jit(
+                lambda d: jt._tier_pixels((None, None, d), level,
+                                          level_index))(jnp.asarray(depth)))
+            vt, _, okt = tt._tier_pixels(vn, level, level_index)
+            assert vt.shape == vj.shape, (level, level_index)
+            # test_tier_vertices_normals_match_jax's bar: a last-bit
+            # difference of the back-projection
+            assert np.abs(vt.numpy() - vj).max() <= 1e-6
+            assert np.array_equal(okt.numpy(), okj)
+        counts.append(len(vj))
+    assert counts == ([300, 1200, 4800] if pix_ref == "default"
+                      else [880, 3600, 14400]), counts
 
 
 REAL_CONFIGS = sorted(
