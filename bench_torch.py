@@ -57,6 +57,8 @@ TARGET_FPS = 15.0
 SLOW_FRAME_S = 1.0
 MESH_VOXEL = 0.04
 PROFILE_FRAMES = (10, 20)
+# frames per step of the ATE over the first n frames
+ATE_SPAN = 100
 
 
 def log(msg):
@@ -203,7 +205,9 @@ def run_attempt(cfg, n_frames: int, warmup: int, device, profile=False):
         ms_per_round=(float(np.mean(slam.round_ms[-20:]))
                       if slam.round_ms else 0.0),
         sel_la_hit=(float(np.mean(slam.sel_la_hit))
-                    if slam.sel_la_hit else None))
+                    if slam.sel_la_hit else None),
+        recentres=len(slam.mv.frame_to_vrange),
+        keyframes=len(slam.kfdb), keyframe_slots=slam.num_kf)
     if res["slow"]:
         log(f"# {len(res['slow'])} frames exceeded {SLOW_FRAME_S:.0f} s "
             f"(total {sum(s for _, s, _ in res['slow']):.2f}s), counted, "
@@ -221,6 +225,8 @@ def run_attempt(cfg, n_frames: int, warmup: int, device, profile=False):
     log(f"# launches from frame 1 on: {res['launches']} "
         f"(map iterations {res['map_iters']}, rounds {res['rounds']}); "
         f"max_memory_allocated={res['max_memory_allocated']}")
+    log(f"# re-centres {res['recentres']}; keyframes {res['keyframes']} in "
+        f"{res['keyframe_slots']} slots")
     return res, slam
 
 
@@ -267,10 +273,13 @@ def mesh_block(slam, n_frames: int) -> dict:
     mesh_path = slam.save_mesh_final(voxel_size=MESH_VOXEL, info=info)
     if info["faces"] == 0:
         raise RuntimeError(f"the {MESH_VOXEL * 100:.0f} cm mesh is empty")
-    _, kept = slam.post_process_mesh(mesh_path,
-                                     slam.convert_relative_pose_npy())
+    _, kept = slam.post_process_mesh(
+        mesh_path, slam.convert_relative_pose_npy()[:n_frames])
     q = mesh_quality(slam.config, slam.out_dir, n_frames, slam.dataset)
     q.update(mesh_faces=info["faces"], mesh_cull_faces=kept,
+             mesh_path=mesh_path,
+             mesh_cull_path=os.path.join(slam.out_dir,
+                                         "mesh_cull_occlusion.ply"),
              wall_s=time.perf_counter() - t0)
     log(f"# mesh: accuracy_cm={q['accuracy_cm']:.3f} "
         f"completion_cm={q['completion_cm']:.3f} "
@@ -282,18 +291,34 @@ def mesh_block(slam, n_frames: int) -> dict:
 
 def ate_block(slam, n_frames: int) -> dict:
     """Full ATE (the composed trajectory) and RO-only ATE (the raw
-    tracker poses) over the n frames, in cm."""
+    tracker poses) over the n frames, in cm; the same over the first
+    ATE_SPAN, 2 ATE_SPAN, .. frames ([frames, full, RO-only] rows, where a
+    long walk departs); whether every pose is finite."""
     from remixfusion_tpu_torch.tools.eval_ate import evaluate_ate
 
     poses = slam.convert_relative_pose_npy()
     gt = {float(i): slam.pose_gt[i] for i in range(n_frames)}
-    full = evaluate_ate(gt, {float(i): poses[i] for i in range(n_frames)})
-    ro = evaluate_ate(gt, {float(i): slam.RO_c2w_data[i]
-                           for i in range(n_frames)})
-    out = {"ate_rmse_cm": full["rmse"] * 100,
-           "ate_rmse_cm_ro_only": ro["rmse"] * 100}
+
+    def ate_cm(est, n):
+        return 100 * evaluate_ate(
+            {k: v for k, v in gt.items() if k < n},
+            {float(i): est[i] for i in range(n)})["rmse"]
+
+    out = {"ate_rmse_cm": ate_cm(poses, n_frames),
+           "ate_rmse_cm_ro_only": ate_cm(slam.RO_c2w_data, n_frames),
+           "ate_by_frames": [[n, ate_cm(poses, n),
+                              ate_cm(slam.RO_c2w_data, n)]
+                             for n in range(ATE_SPAN, n_frames + 1,
+                                            ATE_SPAN)],
+           "poses_finite": bool(
+               np.isfinite(poses[:n_frames]).all()
+               and np.isfinite(slam.RO_c2w_data[:n_frames]).all())}
     log(f"# ate_rmse_cm={out['ate_rmse_cm']:.3f}")
     log(f"# ate_rmse_cm_ro_only={out['ate_rmse_cm_ro_only']:.3f}")
+    if out["ate_by_frames"]:
+        log("# ate_rmse_cm over the first n frames (n, full, RO-only): "
+            + ", ".join(f"({n}, {a:.3f}, {r:.3f})"
+                        for n, a, r in out["ate_by_frames"]))
     return out
 
 

@@ -126,16 +126,35 @@ prints no result line):
      its plain version (both interpolation modes, phase 3's tolerance) on
      the tier inputs captured from this phase's last frame, whose expected
      tsdf holds 1.0 and values below 0;
+  7b. bench corridor: `python3 bench_torch.py --config
+     configs/Synthetic/synthetic_corridor.yaml` in a child process, uncut:
+     the JAX package's large-scale record's own command (BASELINE.md:
+     876-899) at the config's full width, the whole 800-frame walk (30
+     warm-up frames, mapping.first_iters 100, a 400 x 160 x 400 volume at
+     2.5 cm, far 8, PST tiers 10240/3072/1024 x 20 iterations, CPGrid, the
+     4 cm mesh scored by mesh_quality). Its preload renders the walk into
+     the disk render cache that every later corridor phase reads. The bars
+     are a broken run's: 799 tracked frames, brick_eval launched 20 times
+     per tracked frame (15,980) and hash_table_grad never, a mapping round,
+     bench.py's four-key last line, full and RO-only ATE below
+     CORRIDOR_BENCH_ATE_BAR_CM, both meshes non-empty inside the bound +-
+     CORRIDOR_MESH_PAD, every pose finite. Printed beside the JAX record
+     (CORRIDOR_RECORD), with no bar: the ATE over the first 100, 200, ..,
+     800 frames, the mesh scores, the re-centre and keyframe counts, the
+     peak memory, the frames over 1 s, fps and ms per round with the card's
+     name and power limit;
   8. corridor: configs/Synthetic/synthetic_corridor.yaml at its own widths
      (the multi-room building, synthetic_large; 640x480, PST tiers
      10240/3072/1024 and 20 iterations, a 10 x 4 x 10 m moving volume at
      2.5 cm = 400 x 160 x 400 = 25.6 M voxels with brick_budget_frac 0.12,
      trunc 0.06, far 8, CPGrid, a 22 x 3 x 10 m global bound). Overridden:
-     data.output, mapping.state_every 50 and the frame count,
-     CORRIDOR_FRAMES = 100 of the walk's 800 (the one cut, for this
-     script's time limit). brick_eval launched 20 times per tracked frame;
+     data.output, mapping.state_every 32 and the frame count,
+     CORRIDOR_FRAMES = 64 of the walk's 800 (the one cut, for this
+     script's time limit; phase 7 runs the whole walk), every frame read
+     from the render cache [bench corridor] filled (none rendered here, as
+     in phase 9). brick_eval launched 20 times per tracked frame;
      at least 3 re-centres of the moving volume (frame_to_vrange); full
-     and RO-only ATE below 3 cm; resume.npz written at frame 50; mesh.ply
+     and RO-only ATE below 3 cm; resume.npz written at frame 32; mesh.ply
      and mesh_cull_occlusion.ply non-empty with every vertex inside the
      marching-cubes bound +- 0.5 m (the mesh is not scored: the analytic
      ground-truth mesh of the building at 3 cm is ~10x the room's). Then
@@ -144,12 +163,12 @@ prints no result line):
      after the first re-centre: the origin has moved, and the windows reach
      cells at tsdf 1.0 in the slab the re-centre cleared (inside the new
      bounds, outside the old);
-  9. corridor resumed: the RO poses [0, 50] and the volume as they stood
+  9. corridor resumed: the RO poses [0, 32] and the volume as they stood
      at the save are kept, the pipeline deleted; a fresh RemixFusionTorch
      of the same config (its own output directory) loads resume.npz: every
      array it holds is bitwise the file's, the RO rows and the volume
-     bitwise the kept copies; run(resume=True) over frames 51..99:
-     brick_eval launched 20 x 49 times, full and RO-only ATE below 3 cm;
+     bitwise the kept copies; run(resume=True) over frames 33..63:
+     brick_eval launched 20 x 31 times, full and RO-only ATE below 3 cm;
      the gap to the uninterrupted run's RO-only ATE is printed;
   10. kernel checks of the other tracker modes, on slice A's last-frame
      tiers (after phase 3): the plain brick mode (RO.eval_mode brick,
@@ -163,7 +182,7 @@ prints no result line):
      output gradient), phase 5's tolerance, untouched rows exactly zero;
   11. gather: configs/Synthetic/corridor_v25g.yaml (the corridor with
      RO.eval_mode gather, a float32 track view) over GATHER_FRAMES frames,
-     all read from the disk render cache the corridor phase filled (none
+     all read from the disk render cache [bench corridor] filled (none
      rendered here): brick_eval and hash_table_grad never launched, at
      least GATHER_MIN_RECENTRES re-centres, full and RO-only ATE below
      3 cm, meshes inside the bound;
@@ -247,7 +266,8 @@ prints no result line):
      input at stride 2 (120x160), the published frames' sizes in order;
      brick_eval launched 20 times per tracked frame; after close() the
      port refuses connections;
-  15. bench A and bench B: `python3 bench_torch.py --config
+  15. bench A and bench B (bench corridor runs as phase 7b): `python3
+     bench_torch.py --config
      configs/Synthetic/{synthetic_bench,bench_hashgrid}.yaml` in a child
      process at its defaults, uncut (200 frames of the 240-degree orbit,
      30 warm-up frames, mapping.first_iters 100, the mesh block on; A
@@ -319,17 +339,18 @@ REAL = {
     "scannet": ("configs/ScanNet/scene0000.yaml", "largeindoor",
                 "largeindoor", (968, 1296), 0.6),
 }
-REAL_FRAMES = 40
+# cut to 24 frames (from 40) for this script's time limit
+REAL_FRAMES = 24
 REAL_ATE_BAR_CM = 1.5
 CORRIDOR = os.path.join(ROOT, "configs", "Synthetic",
                         "synthetic_corridor.yaml")
-CORRIDOR_FRAMES = 100
-CORRIDOR_STATE_EVERY = 50
+CORRIDOR_FRAMES = 64
+CORRIDOR_STATE_EVERY = 32
 CORRIDOR_ATE_BAR_CM = 3.0
 CORRIDOR_MIN_RECENTRES = 3
 CORRIDOR_MESH_PAD = 0.5
 # [gather]: corridor_v25g.yaml (the corridor with RO.eval_mode gather) over
-# frames the corridor phase rendered into the disk cache
+# frames [bench corridor] rendered into the disk cache
 GATHER = os.path.join(SYN, "corridor_v25g.yaml")
 GATHER_FRAMES = 50
 GATHER_MIN_RECENTRES = 2
@@ -404,15 +425,26 @@ STEP_UPDATE_REL = 1e-3
 POSE_TOL = 1e-5
 SHIFT_RANGE, SHIFT_SEED = 0.1, 100
 SHARDED_TIMED_STEPS = 6
-# [bench A] / [bench B]: bench_torch.py uncut on the two main-path configs,
-# its time limit, and BENCH_r05.json's chip-independent quality digits
-# (the JAX bench's record on synthetic_bench.yaml, the target)
-BENCH = {"A": os.path.join(SYN, "synthetic_bench.yaml"),
+# [bench corridor] / [bench A] / [bench B]: bench_torch.py uncut on the
+# corridor (the JAX package's large-scale record) and the two main-path
+# configs, each with its time limit; BENCH_r05.json's chip-independent
+# quality digits (the JAX bench's record on synthetic_bench.yaml, the
+# target of A and B)
+BENCH = {"corridor": CORRIDOR,
+         "A": os.path.join(SYN, "synthetic_bench.yaml"),
          "B": os.path.join(SYN, "bench_hashgrid.yaml")}
-BENCH_FRAMES = 200
-BENCH_TIMEOUT_S = 480
+BENCH_TIMEOUT_S = {"corridor": 900, "A": 480, "B": 480}
 BENCH_RECORD = {"ate_rmse_cm": 1.030, "ate_rmse_cm_ro_only": 1.019,
                 "f1": 0.976, "accuracy_cm": 1.197, "completion_cm": 1.884}
+# [bench corridor]'s bars are those of a broken run, not a quality
+# judgement: a runaway tracker reads metres. CORRIDOR_RECORD is the JAX
+# package's official 800-frame record (BASELINE.md:876-899, the shipped
+# brick/pallas mode; the gather-mode run completes at 39.6 cm), printed
+# beside the run's numbers with no bar
+CORRIDOR_BENCH_ATE_BAR_CM = 100.0
+CORRIDOR_RECORD = {"ate_rmse_cm": 59.14, "ate_rmse_cm_ro_only": 59.10,
+                   "accuracy_cm": 13.3, "completion_cm": 21.5, "f1": 0.41,
+                   "frames_per_recentre": 14, "gather_ate_rmse_cm": 39.6}
 
 
 def fail(msg):
@@ -1027,26 +1059,34 @@ def corridor_config(output):
     return cfg
 
 
-def check_corridor_meshes(out, slam, label):
+def meshes_in_bound(paths, bound, label):
+    """(verts, faces) of each PLY of `paths`; fails unless each is
+    non-empty with every vertex finite and inside `bound` [3, 2] +-
+    CORRIDOR_MESH_PAD."""
     import numpy as np
 
     from remixfusion_tpu_torch.utils.meshio import read_ply
 
-    lo = slam.mc_bound[:, 0] - CORRIDOR_MESH_PAD
-    hi = slam.mc_bound[:, 1] + CORRIDOR_MESH_PAD
-    counts = {}
-    for key in ("mesh_path", "mesh_cull_path"):
-        v, f = read_ply(out[key])
+    lo = bound[:, 0] - CORRIDOR_MESH_PAD
+    hi = bound[:, 1] + CORRIDOR_MESH_PAD
+    counts = []
+    for path in paths:
+        v, f = read_ply(path)
         if v is None or f is None or not len(v) or not len(f):
-            fail(f"{label}: {out[key]} is empty")
+            fail(f"{label}: {path} is empty")
         if not (np.isfinite(v).all() and (v >= lo).all()
                 and (v <= hi).all()):
-            fail(f"{label}: {out[key]} has vertices outside the "
+            fail(f"{label}: {path} has vertices outside the "
                  f"marching-cubes bound +- {CORRIDOR_MESH_PAD} m")
-        counts[key] = (len(v), len(f))
-    print(f"[{label}] mesh.ply {counts['mesh_path']} and "
-          f"mesh_cull_occlusion.ply {counts['mesh_cull_path']} (verts, "
-          f"faces) inside the bound; stage ms: query "
+        counts.append((len(v), len(f)))
+    return counts
+
+
+def check_corridor_meshes(out, slam, label):
+    raw, culled = meshes_in_bound([out["mesh_path"], out["mesh_cull_path"]],
+                                  slam.mc_bound, label)
+    print(f"[{label}] mesh.ply {raw} and mesh_cull_occlusion.ply {culled} "
+          f"(verts, faces) inside the bound; stage ms: query "
           f"{out['mesh_query_ms']:.1f}, marching "
           f"{out['mesh_marching_ms']:.1f}, write {out['mesh_write_ms']:.1f}"
           f", cull {out['mesh_cull_ms']:.1f}", flush=True)
@@ -1085,11 +1125,15 @@ def phase_corridor(torch):
     from remixfusion_tpu_torch.tracking import rotracker
 
     cfg = corridor_config("corridor")
+    require_cached(cfg, CORRIDOR_FRAMES + 1, "corridor")
     t0 = time.time()
     slam = RemixFusionTorch(cfg, device="cuda")
     origin0 = slam.mv.vol_bnds[:, 0].copy()
+    rendered = slam.dataset.render_missing(range(CORRIDOR_FRAMES + 1))
     slam.preload(CORRIDOR_FRAMES + 1)
     t_setup = time.time() - t0
+    if rendered:
+        fail(f"corridor: {rendered} frames rendered, expected none")
     dims, vs = slam.mv.dims, slam.mv.voxel_size
     print(f"[corridor] {os.path.relpath(CORRIDOR, ROOT)}: "
           f"{cfg['dataset']}, {slam.dataset.W}x{slam.dataset.H}, volume "
@@ -1098,7 +1142,8 @@ def phase_corridor(torch):
           f"iterations, far {cfg['cam']['far']}, {cfg['grid']['enc']}, "
           f"bound {cfg['mapping']['bound']}; {CORRIDOR_FRAMES} of "
           f"{slam.dataset.num_frames} frames; set-up (seed fusion, "
-          f"{CORRIDOR_FRAMES + 1} frames rendered) {t_setup:.1f} s",
+          f"{CORRIDOR_FRAMES + 1} frames read from the render cache "
+          f"[bench corridor] filled, 0 rendered) {t_setup:.1f} s",
           flush=True)
 
     iters = int(cfg["RO"]["particle_iter_lens"])
@@ -1221,9 +1266,13 @@ def phase_corridor_resumed(torch, kept, out_full):
     from remixfusion_tpu_torch.slam import RemixFusionTorch
 
     cfg = corridor_config("corridor_resumed")
+    require_cached(cfg, CORRIDOR_FRAMES, "corridor resumed")
     t0 = time.time()
     slam = RemixFusionTorch(cfg, device="cuda")
+    rendered = slam.dataset.render_missing(range(CORRIDOR_FRAMES))
     t_setup = time.time() - t0
+    if rendered:
+        fail(f"corridor resumed: {rendered} frames rendered, expected none")
     t0 = time.time()
     slam.load_state(kept["path"])
     t_load = time.time() - t0
@@ -1249,8 +1298,9 @@ def phase_corridor_resumed(torch, kept, out_full):
     print(f"[corridor resumed] {len(data)} arrays of resume.npz "
           f"({os.path.getsize(kept['path'])} bytes) loaded bitwise, RO rows "
           f"[0, {i}] and the {tuple(slam.mv.dims)} volume bitwise the kept "
-          f"copies; set-up {t_setup:.1f} s, load_state {t_load:.1f} s",
-          flush=True)
+          f"copies; set-up {t_setup:.1f} s, load_state {t_load:.1f} s; "
+          f"frames 0..{CORRIDOR_FRAMES - 1} in the render cache [bench "
+          f"corridor] filled, 0 rendered", flush=True)
     del data, got
 
     iters = int(cfg["RO"]["particle_iter_lens"])
@@ -1521,7 +1571,7 @@ def phase_dense_hash(torch):
 
 def phase_gather(torch):
     """[gather]: corridor_v25g.yaml (the corridor with RO.eval_mode gather)
-    over GATHER_FRAMES frames that the corridor phase rendered into the
+    over GATHER_FRAMES frames that [bench corridor] rendered into the
     disk cache (checked: none is rendered here), with the launch counts
     zeroed just before the run and read just after: brick_eval and
     hash_table_grad never; at least GATHER_MIN_RECENTRES re-centres; full
@@ -1547,7 +1597,8 @@ def phase_gather(torch):
     print(f"[gather] {os.path.relpath(GATHER, ROOT)}: RO.eval_mode "
           f"{tr.eval_mode}, track view {tr.track_dtype}, volume "
           f"{slam.mv.dims}; {GATHER_FRAMES + 1} frames read from the "
-          f"corridor's render cache, 0 rendered; set-up {t_setup:.1f} s",
+          f"render cache [bench corridor] filled, 0 rendered; set-up "
+          f"{t_setup:.1f} s",
           flush=True)
     be.brick_eval_volume.launches = 0
     he.hash_table_grad.launches = 0
@@ -1582,8 +1633,8 @@ def phase_gather(torch):
 
 
 def require_cached(cfg, n, label):
-    """Fail unless frames 0..n-1 of cfg's walk are in the corridor's render
-    cache."""
+    """Fail unless frames 0..n-1 of cfg's walk are in the render cache
+    that [bench corridor] filled."""
     import copy
 
     from remixfusion_tpu_torch.datasets import get_dataset
@@ -1595,13 +1646,13 @@ def require_cached(cfg, n, label):
     missing = [i for i in range(n)
                if not os.path.exists(ds._disk_cache_path(i))]
     if missing:
-        fail(f"{label}: frames {missing} are not in the corridor's render "
-             f"cache")
+        fail(f"{label}: frames {missing} are not in the render cache "
+             f"[bench corridor] filled")
 
 
 def phase_variant(torch, label, ro_corridor):
     """[corridor hashgrid | damp | gate | noise]: VARIANTS[label] over
-    VARIANT_FRAMES frames that the corridor phase rendered into the disk
+    VARIANT_FRAMES frames that [bench corridor] rendered into the disk
     cache (none rendered here), with the launch counts zeroed just before
     the run and read just after: brick_eval 20 times per tracked frame,
     hash_table_grad twice per map iteration with the HashGrid field and
@@ -1649,7 +1700,8 @@ def phase_variant(torch, label, ro_corridor):
           f"{cfg['grid']['enc']}{table}, tracking.speed_damp {damp}, "
           f"volume.fuse_fit_gate {gate}, sensor_noise {noise}, RO.cut_dist "
           f"{cfg['RO']['cut_dist']}; {n + 1} frames read from the "
-          f"corridor's render cache, 0 rendered; set-up {t_setup:.1f} s",
+          f"render cache [bench corridor] filled, 0 rendered; set-up "
+          f"{t_setup:.1f} s",
           flush=True)
 
     damps, weights = [], []
@@ -2059,22 +2111,28 @@ def image_dims(body):
 
 def phase_bench(label):
     """[bench <label>]: bench_torch.py on BENCH[label] in a child process
-    at its defaults (the BENCH_* variables cleared), held to the slices'
-    bars; returns the child's `# result` numbers with the phase wall."""
+    at its defaults (the BENCH_* variables cleared), held to its bars (the
+    slices' on A and B, a broken run's on the corridor); returns the
+    child's `# result` numbers with the phase wall."""
+    import numpy as np
+
+    from bench_torch import configure
     from remixfusion_tpu_torch.config import load_config
 
     tag = f"[bench {label}]"
     rel = os.path.relpath(BENCH[label], ROOT)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("BENCH_") and k != "REMIX_PROFILE"}
+    cfg = load_config(BENCH[label])
+    n_frames = configure(cfg, rel, env={})
     t0 = time.time()
     try:
         out = subprocess.run(
             [sys.executable, os.path.join(ROOT, "bench_torch.py"),
              "--config", rel], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=BENCH_TIMEOUT_S)
+            text=True, timeout=BENCH_TIMEOUT_S[label])
     except subprocess.TimeoutExpired:
-        fail(f"{tag} bench_torch.py ran past {BENCH_TIMEOUT_S} s")
+        fail(f"{tag} bench_torch.py ran past {BENCH_TIMEOUT_S[label]} s")
     wall = time.time() - t0
     log = os.path.join(ROOT, "build", "smoke", f"bench_{label}.log")
     os.makedirs(os.path.dirname(log), exist_ok=True)
@@ -2096,18 +2154,19 @@ def phase_bench(label):
         fail(f"{tag} last line {last} lacks bench.py's four keys")
     if not last["value"] > 0:
         fail(f"{tag} fps {last['value']} <= 0")
-    cfg = load_config(BENCH[label])
     iters = int(cfg["RO"]["particle_iter_lens"])
-    want = {"brick_eval": iters * (BENCH_FRAMES - 1),
+    want = {"brick_eval": iters * (n_frames - 1),
             "hash_table_grad": (2 * res["map_iters"]
                                 if cfg["grid"]["enc"] == "HashGrid" else 0)}
-    if res["tracked_frames"] != BENCH_FRAMES - 1:
+    if res["tracked_frames"] != n_frames - 1:
         fail(f"{tag} tracked {res['tracked_frames']} frames, expected "
-             f"{BENCH_FRAMES - 1}")
+             f"{n_frames - 1}")
     if res["launches"] != want:
         fail(f"{tag} launches {res['launches']}, expected {want}")
     if not res["rounds"] > 0:
         fail(f"{tag} no mapping round ran")
+    if not res["poses_finite"]:
+        fail(f"{tag} a pose is not finite")
     q = {"ate_rmse_cm": res["ate_rmse_cm"],
          "ate_rmse_cm_ro_only": res["ate_rmse_cm_ro_only"],
          **{k: res["mesh"][k] for k in ("f1", "accuracy_cm",
@@ -2119,14 +2178,48 @@ def phase_bench(label):
             "slow_frames": res["slow"], "sel_la_hit": res["sel_la_hit"],
             "max_memory_allocated": res["max_memory_allocated"],
             "launches": res["launches"], "map_iters": res["map_iters"],
-            "quality": q, "record_BENCH_r05": BENCH_RECORD,
-            "mesh_wall_s": res["mesh"]["wall_s"], "phase_wall_s": wall}
+            "recentres": res["recentres"], "keyframes": res["keyframes"],
+            "keyframe_slots": res["keyframe_slots"],
+            "ate_by_frames": res["ate_by_frames"], "quality": q,
+            "mesh_wall_s": res["mesh"]["wall_s"], "phase_wall_s": wall,
+            "card": card_line()}
+    if label == "corridor":
+        line["record_JAX_corridor"] = CORRIDOR_RECORD
+        line["frames_per_recentre"] = (n_frames / res["recentres"]
+                                       if res["recentres"] else None)
+    else:
+        line["record_BENCH_r05"] = BENCH_RECORD
     print(json.dumps({"bench_phase": line}), flush=True)
+    if label == "corridor":
+        bound = np.asarray(cfg["mapping"]["marching_cubes_bound"])
+        # the child's paths are relative to its working directory, ROOT
+        counts = meshes_in_bound(
+            [os.path.join(ROOT, res["mesh"][k])
+             for k in ("mesh_path", "mesh_cull_path")], bound, tag)
+        print(f"{tag} {n_frames} frames, {res['tracked_frames']} tracked, "
+              f"fps {last['value']} ({line['card']}); ATE full / RO-only "
+              f"{q['ate_rmse_cm']:.3f} / {q['ate_rmse_cm_ro_only']:.3f} cm "
+              f"(JAX record {CORRIDOR_RECORD['ate_rmse_cm']} / "
+              f"{CORRIDOR_RECORD['ate_rmse_cm_ro_only']}); mesh accuracy / "
+              f"completion {q['accuracy_cm']:.2f} / "
+              f"{q['completion_cm']:.2f} cm, F1 {q['f1']:.3f} (JAX "
+              f"{CORRIDOR_RECORD['accuracy_cm']} / "
+              f"{CORRIDOR_RECORD['completion_cm']}, "
+              f"{CORRIDOR_RECORD['f1']}); {res['recentres']} re-centres "
+              f"(JAX: one per ~{CORRIDOR_RECORD['frames_per_recentre']} "
+              f"frames); keyframes {res['keyframes']} in "
+              f"{res['keyframe_slots']} slots; peak memory "
+              f"{res['max_memory_allocated']} B; {len(res['slow'])} frames "
+              f"over 1 s; meshes (verts, faces) {counts} inside the bound "
+              f"+- {CORRIDOR_MESH_PAD} m", flush=True)
+        bar = CORRIDOR_BENCH_ATE_BAR_CM
+    else:
+        bar = ATE_BAR_CM
+        if not q["f1"] >= F1_BAR:
+            fail(f"{tag} mesh F1 {q['f1']} < {F1_BAR}")
     for key in ("ate_rmse_cm", "ate_rmse_cm_ro_only"):
-        if not q[key] < ATE_BAR_CM:
-            fail(f"{tag} {key} {q[key]} cm >= {ATE_BAR_CM}")
-    if not q["f1"] >= F1_BAR:
-        fail(f"{tag} mesh F1 {q['f1']} < {F1_BAR}")
+        if not q[key] < bar:
+            fail(f"{tag} {key} {q[key]} cm >= {bar}")
     return line
 
 
@@ -2794,9 +2887,14 @@ def main():
               "remixfusion_tpu_torch package is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from remixfusion_tpu_torch.datasets import synthetic
     from remixfusion_tpu_torch.ops import brick_eval as be
     from remixfusion_tpu_torch.ops import hash_enc as he
 
+    print(f"[host] {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} "
+          f"usable; frames render in up to {synthetic._RENDER_WORKERS} "
+          f"worker processes",
+          flush=True)
     wall = {}
     t0 = time.time()
     phase_build()
@@ -2859,6 +2957,14 @@ def main():
         del slam, tiers
         torch.cuda.empty_cache()
 
+    # the whole corridor walk first: its preload renders the 800 frames
+    # into the disk cache that every later corridor phase reads
+    benches = {}
+    t0 = time.time()
+    benches["corridor"] = phase_bench("corridor")
+    wall["bench corridor"] = time.time() - t0
+    print(f"[bench corridor] phase wall {wall['bench corridor']:.1f} s",
+          flush=True)
     t0 = time.time()
     slam, out_c, launches_c, kept, cases = phase_corridor(torch)
     ro_corridor = slam.RO_c2w_data[:VARIANT_FRAMES].copy()
@@ -2949,8 +3055,7 @@ def main():
     launches_live = phase_live(torch)
     wall["live"] = time.time() - t0
     torch.cuda.empty_cache()
-    benches = {}
-    for label in BENCH:
+    for label in ("A", "B"):
         t0 = time.time()
         benches[label] = phase_bench(label)
         wall[f"bench {label}"] = time.time() - t0

@@ -24,9 +24,10 @@ exact.
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -53,32 +54,100 @@ def _look_at(eye, target, up=(0.0, -1.0, 0.0)):
     return c2w
 
 
-# rays per block of the box slab test, and threads rendering missing frames
+# rays per block of the box slab test and per chunk of the renderer, points
+# per chunk of the exact SDF, the processes rendering missing frames
+# (threads evaluating the SDF), and the fewest missing rays worth starting
+# them for (~14 frames of 640x480)
 _SLAB_ROWS = 4096
+_RAY_CHUNK = 8192
+_SDF_ROWS = 65536
 _RENDER_WORKERS = min(8, os.cpu_count() or 1)
+_WORKER_RAYS = 1 << 22
+# box culling: a box is grown by _BOX_GROW (m) before its camera-frame
+# slopes are taken, and a block of rays keeps every box whose slopes come
+# within _SLOPE_PAD of the block's (float32 ray directions move a slope by
+# ~1e-7)
+_BOX_GROW = 1e-6
+_SLOPE_PAD = 1e-3
+_EDGES = [(c, c | 1 << k) for c in range(8) for k in range(3)
+          if not c >> k & 1]
 
 
-def _slab_hits(lo_o, hi_o, inv_d):
+def _box_slopes(lo, hi, c2w):
+    """[B, 4] per box: the least and largest x/z, then y/z, camera-frame
+    slope of the points of the box (grown by _BOX_GROW) in front of the
+    camera (z > 0); the side of a range is infinite where the box reaches
+    the camera plane, and the range empty (inf, -inf) for a box wholly
+    behind it. A ray of the pixel grid can hit only a box whose ranges hold
+    its slopes."""
+    bits = np.array([[c >> k & 1 for k in range(3)] for c in range(8)], bool)
+    corners = np.where(bits[None], (hi + _BOX_GROW)[:, None],
+                       (lo - _BOX_GROW)[:, None])
+    rot = c2w[:3, :3].astype(np.float64)
+    cam = (corners - c2w[:3, 3].astype(np.float64)) @ np.linalg.inv(rot).T
+    x, y, z = cam[..., 0], cam[..., 1], cam[..., 2]
+    front = z > 0
+    zf = np.where(front, z, 1.0)
+    a, b = np.array(_EDGES).T
+    cross = front[:, a] != front[:, b]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        f = np.where(cross, z[:, a] / (z[:, a] - z[:, b]), 0.0)
+    out = []
+    for v in (x, y):
+        s = v / zf
+        q = v[:, a] + (v[:, b] - v[:, a]) * f  # where an edge meets z = 0
+        lo_s = np.where(front, s, np.inf).min(1)
+        hi_s = np.where(front, s, -np.inf).max(1)
+        lo_s[(cross & (q < _BOX_GROW)).any(1)] = -np.inf
+        hi_s[(cross & (q > -_BOX_GROW)).any(1)] = np.inf
+        out += [lo_s, hi_s]
+    return np.stack(out, 1)
+
+
+def _slab_hits(lo_o, hi_o, inv_d, slopes=None, box_slopes=None):
     """Nearest entry distance of each ray into any of B boxes (slab test;
     inf where none is hit in front of the origin): lo_o, hi_o [B, 3] the
     box corners minus the ray origin, inv_d [M, 3] the inverse directions.
     The JAX renderer's per-element arithmetic ((corner - o) * inv_d, the
     min / max over the three axes, the hit test, the min over boxes) on
     [_SLAB_ROWS, B] blocks one axis at a time instead of [M, B, 3] arrays,
-    which keeps the temporaries in cache; the result is bitwise the same."""
+    which keeps the temporaries in cache. With the rays' camera-frame
+    slopes [M, 2] and _box_slopes, a block tests only the boxes its rays
+    can reach: the others would add inf to the min. The result is bitwise
+    the same."""
     out = np.empty(inv_d.shape[0])
     for r0 in range(0, inv_d.shape[0], _SLAB_ROWS):
         iv = inv_d[r0:r0 + _SLAB_ROWS]
+        lo_b, hi_b = lo_o, hi_o
+        if box_slopes is not None:
+            s = slopes[r0:r0 + _SLAB_ROWS]
+            s_lo, s_hi = s.min(0) - _SLOPE_PAD, s.max(0) + _SLOPE_PAD
+            keep = ((box_slopes[:, 1] >= s_lo[0])
+                    & (box_slopes[:, 0] <= s_hi[0])
+                    & (box_slopes[:, 3] >= s_lo[1])
+                    & (box_slopes[:, 2] <= s_hi[1]))
+            if not keep.any():
+                out[r0:r0 + _SLAB_ROWS] = np.inf
+                continue
+            lo_b, hi_b = lo_o[keep], hi_o[keep]
         tmin = tmax = None
         for k in range(3):
-            a = lo_o[None, :, k] * iv[:, k, None]
-            b = hi_o[None, :, k] * iv[:, k, None]
+            a = lo_b[None, :, k] * iv[:, k, None]
+            b = hi_b[None, :, k] * iv[:, k, None]
             near, far = np.minimum(a, b), np.maximum(a, b)
             tmin = near if tmin is None else np.maximum(tmin, near)
             tmax = far if tmax is None else np.minimum(tmax, far)
         hit = (tmax > tmin) & (tmin > 1e-6)
         out[r0:r0 + _SLAB_ROWS] = np.where(hit, tmin, np.inf).min(axis=1)
     return out
+
+
+def _render_into_cache(scene, jobs):
+    """A render_missing worker: the scene's (frame, cache path) pairs
+    rendered into the cache."""
+    for i, path in jobs:
+        rgb, depth = scene.render(scene.poses[i])
+        scene._write_cache(path, rgb, depth)
 
 
 class AnalyticSceneDataset(BaseDataset):
@@ -98,6 +167,10 @@ class AnalyticSceneDataset(BaseDataset):
 
     def __len__(self):
         return self.n_frames
+
+    def __getstate__(self):
+        # a render worker gets the scene, not the frames served so far
+        return dict(self.__dict__, _cache={})
 
     def render(self, c2w):
         """Exact ray-traced depth (z-depth) + RGB for one pose.
@@ -123,7 +196,21 @@ class AnalyticSceneDataset(BaseDataset):
         b_hi = (np.stack([hi for _, hi in self.boxes])
                 if self.boxes else np.zeros((0, 3)))
 
-        chunk = 65536
+        if len(b_lo):
+            box_s = _box_slopes(b_lo, b_hi, c2w)
+            slopes = dirs.reshape(-1, 3).astype(np.float64)
+            slopes = slopes[:, :2] / slopes[:, 2:]
+
+        # outer box walls (interior): planes x=0, x=Lx, y=0, y=Ly, z=0, z=Lz
+        dims = self.room_dims
+        planes = [(0, 0.0), (0, dims[0]), (1, 0.0), (1, dims[1]),
+                  (2, 0.0), (2, dims[2])]
+        wall_colors = np.array([
+            [0.85, 0.3, 0.3], [0.3, 0.85, 0.3], [0.3, 0.3, 0.85],
+            [0.85, 0.85, 0.3], [0.3, 0.85, 0.85], [0.85, 0.3, 0.85],
+        ], np.float32)
+
+        chunk = _RAY_CHUNK
         for i0 in range(0, all_d.shape[0], chunk):
             sl = slice(i0, min(i0 + chunk, all_d.shape[0]))
             flat_d = all_d[sl]
@@ -143,57 +230,48 @@ class AnalyticSceneDataset(BaseDataset):
                     si = np.argmin(t_s, axis=1)
                     t_best = t_s[np.arange(len(t_s)), si]
                     upd = t_best < t_c
-                    p = o[None, :] + np.where(upd, t_best, 0.0)[:, None] \
-                        * flat_d
-                    n = (p - s_c[si]) / s_r[si][:, None]
+                    # the colour of the rays it updates only
+                    p = o[None, :] + t_best[upd][:, None] * flat_d[upd]
+                    n = (p - s_c[si[upd]]) / s_r[si[upd]][:, None]
                     sph_col = 0.5 + 0.45 * np.stack(
                         [np.sin(3 * n[:, 0]) * np.cos(2 * n[:, 1]),
                          np.sin(4 * n[:, 1]),
                          np.cos(3 * n[:, 2])], axis=1)
                     t_c = np.where(upd, t_best, t_c)
-                    col_c[upd] = sph_col[upd].astype(np.float32)
+                    col_c[upd] = sph_col.astype(np.float32)
 
                 if len(b_lo):
                     inv_d = np.where(flat_d != 0, 1.0 / flat_d, 1e30)
-                    t_best = _slab_hits(b_lo - o, b_hi - o, inv_d)
+                    t_best = _slab_hits(b_lo - o, b_hi - o, inv_d,
+                                        slopes[sl], box_s)
                     upd = t_best < t_c
-                    p = o[None, :] + np.where(upd, t_best, 0.0)[:, None] \
-                        * flat_d
+                    p = o[None, :] + t_best[upd][:, None] * flat_d[upd]
                     box_col = 0.35 + 0.6 * np.abs(
                         np.sin(p * 4.0)).astype(np.float32)
                     t_c = np.where(upd, t_best, t_c)
-                    col_c[upd] = box_col[upd].astype(np.float32)
+                    col_c[upd] = box_col.astype(np.float32)
+
+                for k, (axis, plane) in enumerate(planes):
+                    others = [i for i in range(3) if i != axis]
+                    t_p = (plane - o[axis]) / flat_d[:, axis]
+                    pu, pv = (o[c] + t_p * flat_d[:, c] for c in others)
+                    su, sv = dims[others[0]], dims[others[1]]
+                    inside = ((pu >= -1e-6) & (pu <= su + 1e-6)
+                              & (pv >= -1e-6) & (pv <= sv + 1e-6))
+                    ok = (np.isfinite(t_p) & (t_p > 1e-6) & inside
+                          & (t_p < t_c))
+                    t_c = np.where(ok, t_p, t_c)
+                    # checkerboard shading so mapping has texture to learn
+                    # (the hit points are finite where ok)
+                    u = np.floor(pu[ok] * 2.5).astype(int)
+                    v = np.floor(pv[ok] * 2.5).astype(int)
+                    shade = np.where((u + v) % 2 == 0, 1.0,
+                                     0.72).astype(np.float32)
+                    col_c[ok] = wall_colors[k][None, :] * shade[:, None]
             t_hit[sl] = t_c
             color[sl] = col_c
 
         flat_d = all_d
-        # Outer box walls (interior): planes x=0, x=Lx, y=0, y=Ly, z=0, z=Lz
-        dims = self.room_dims
-        wall_colors = np.array([
-            [0.85, 0.3, 0.3], [0.3, 0.85, 0.3], [0.3, 0.3, 0.85],
-            [0.85, 0.85, 0.3], [0.3, 0.85, 0.85], [0.85, 0.3, 0.85],
-        ], np.float32)
-        for k, (axis, plane) in enumerate(
-                [(0, 0.0), (0, dims[0]), (1, 0.0), (1, dims[1]),
-                 (2, 0.0), (2, dims[2])]):
-            da = flat_d[:, axis]
-            with np.errstate(divide="ignore", invalid="ignore"):
-                t_p = (plane - o[axis]) / da
-                p = o[None, :] + t_p[:, None] * flat_d
-            others = [i for i in range(3) if i != axis]
-            su, sv = dims[others[0]], dims[others[1]]
-            inside = ((p[:, others[0]] >= -1e-6) & (p[:, others[0]] <= su + 1e-6)
-                      & (p[:, others[1]] >= -1e-6) & (p[:, others[1]] <= sv + 1e-6))
-            ok = np.isfinite(t_p) & (t_p > 1e-6) & inside & (t_p < t_hit)
-            t_hit = np.where(ok, t_p, t_hit)
-            # checkerboard shading so mapping has texture to learn
-            pu = np.nan_to_num(p[:, others[0]], nan=0.0, posinf=0.0, neginf=0.0)
-            pv = np.nan_to_num(p[:, others[1]], nan=0.0, posinf=0.0, neginf=0.0)
-            u = np.floor(pu * 2.5).astype(int)
-            v = np.floor(pv * 2.5).astype(int)
-            shade = np.where((u + v) % 2 == 0, 1.0, 0.72).astype(np.float32)
-            color[ok] = wall_colors[k][None, :] * shade[ok, None]
-
         # z-depth (projection onto camera forward axis), like real sensors
         fwd = c2w[:3, 2].astype(np.float64)
         z = t_hit * (flat_d @ fwd)
@@ -236,10 +314,12 @@ class AnalyticSceneDataset(BaseDataset):
         grid = np.stack(
             np.meshgrid(axes[0], axes[1], axes[2], indexing="ij"), -1)
         flat = grid.reshape(-1, 3)
-        # chunked: large buildings evaluate tens of millions of points
-        sdf = np.concatenate(
-            [self.gt_sdf(flat[i:i + 4_000_000])
-             for i in range(0, len(flat), 4_000_000)]).reshape(ns)
+        # large buildings evaluate tens of millions of points: in chunks
+        # that stay in cache, on threads (numpy releases the GIL)
+        with ThreadPoolExecutor(_RENDER_WORKERS) as ex:
+            sdf = np.concatenate(list(ex.map(
+                lambda i: self.gt_sdf(flat[i:i + _SDF_ROWS]),
+                range(0, len(flat), _SDF_ROWS)))).reshape(ns)
         verts, faces = marching_cubes(sdf, 0.0)
         verts = verts * voxel_size
         return verts.astype(np.float32), faces
@@ -266,23 +346,27 @@ class AnalyticSceneDataset(BaseDataset):
         os.replace(tmp, path)
 
     def render_missing(self, indices):
-        """Render the frames of `indices` that the disk cache lacks, on
-        _RENDER_WORKERS threads (numpy releases the GIL in the ray tests),
-        into the cache; __getitem__ then reads them. Returns how many were
-        rendered."""
-        self.get_direction()  # the shared ray grid, before the threads
+        """Render the frames of `indices` that the disk cache lacks into
+        the cache, in up to _RENDER_WORKERS worker processes, each given
+        every n-th frame (a render's many small numpy calls hold the GIL
+        between them, so threads do not scale), or in this process when
+        they hold fewer than _WORKER_RAYS rays; __getitem__ then reads
+        them. Returns how many were rendered."""
         todo = [i for i in indices
                 if not os.path.exists(self._disk_cache_path(i))]
         if not todo:
             return 0
-
-        def one(i):
-            rgb, depth = self.render(self.poses[i])
-            self._write_cache(self._disk_cache_path(i), rgb, depth)
-
-        with ThreadPoolExecutor(_RENDER_WORKERS) as ex:
-            list(ex.map(one, todo))
-        return len(todo)
+        self.get_direction()  # the ray grid, computed once for every worker
+        jobs = [(i, self._disk_cache_path(i)) for i in todo]
+        if len(jobs) * self.H * self.W < _WORKER_RAYS:
+            _render_into_cache(self, jobs)  # less work than starting workers
+            return len(jobs)
+        n = min(_RENDER_WORKERS, len(jobs))
+        with ProcessPoolExecutor(
+                n, mp_context=multiprocessing.get_context("spawn")) as ex:
+            list(ex.map(_render_into_cache, [self] * n,
+                        [jobs[k::n] for k in range(n)]))
+        return len(jobs)
 
     def __getitem__(self, index):
         if index not in self._cache:

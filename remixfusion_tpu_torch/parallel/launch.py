@@ -38,6 +38,9 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast")
+# how long spawn waits, after a rank process died without reporting, for
+# another rank's report of the failure that took it down
+GRACE_S = 15.0
 
 
 def make_group(ranks=None):
@@ -128,9 +131,12 @@ def world_rank(comm) -> tuple:
 def _rank_main(fn, rank, world, backend, device, init_file, timeout_s, args,
                results):
     """One rank: join the group, run fn, report (rank, ok, pickled result
-    or traceback) on the results queue, leave the group. The result is
+    or traceback) on the results queue, then leave the group. The result is
     pickled here, by value: a tensor put on the queue as it is would travel
-    as a shared-memory handle that dies with this process."""
+    as a shared-memory handle that dies with this process. The report is
+    flushed into the pipe before the group is left: leaving it fails the
+    ranks still waiting in a collective, and what they report (or their
+    hard exit) must reach the caller after this rank's own failure."""
     try:
         dev = torch.device(device)
         if dev.type == "cuda":
@@ -141,13 +147,17 @@ def _rank_main(fn, rank, world, backend, device, init_file, timeout_s, args,
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", world_size=world,
             rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
-        try:
-            out = fn(rank, world, *args)
-        finally:
-            dist.destroy_process_group()
-        results.put((rank, True, pickle.dumps(out)))
-    except Exception:  # the rank's boundary: the caller raises it
+    except Exception:  # no group to leave
         results.put((rank, False, traceback.format_exc()))
+        return
+    try:
+        report = (rank, True, pickle.dumps(fn(rank, world, *args)))
+    except Exception:  # the rank's boundary: the caller raises it
+        report = (rank, False, traceback.format_exc())
+    results.put(report)
+    results.close()
+    results.join_thread()
+    dist.destroy_process_group()
 
 
 def spawn(fn, world: int, *, backend: str, device="cuda", init_file: str,
@@ -158,9 +168,11 @@ def spawn(fn, world: int, *, backend: str, device="cuda", init_file: str,
     the card count. `init_file` is the rendezvous file (a path that does
     not exist yet, on a file system every rank sees). Returns the ranks'
     results in rank order. Raises RuntimeError with the failed ranks'
-    tracebacks, or TimeoutError when the ranks have not all reported within
-    timeout_s plus a minute to start; every rank still running then is
-    stopped."""
+    tracebacks (a rank process that dies without a report, within GRACE_S
+    of another rank's report of a failure, is part of that failure), or
+    when a rank process died and no report came within GRACE_S; or
+    TimeoutError when the ranks have not all reported within timeout_s
+    plus a minute to start. Every rank still running then is stopped."""
     if os.path.exists(init_file):
         raise ValueError(f"rendezvous file {init_file} exists already")
     ctx = mp.get_context("spawn")
@@ -172,25 +184,32 @@ def spawn(fn, world: int, *, backend: str, device="cuda", init_file: str,
     for p in procs:
         p.start()
     got, failed = {}, {}
+    died = None  # exit code of the first rank process gone unreported
     deadline = time.monotonic() + timeout_s + 60.0
     try:
         # drain the queue before joining: a rank blocks on a full pipe
         while len(got) + len(failed) < world:
             left = deadline - time.monotonic()
             if left <= 0:
-                if failed:
+                if failed or died is not None:
                     break
                 raise TimeoutError(
                     f"{world - len(got)} of {world} ranks did not report "
                     f"within {timeout_s + 60.0:.0f} s")
             try:
-                rank, ok, out = results.get(timeout=min(left, 5.0))
+                rank, ok, out = results.get(timeout=min(left, 1.0))
             except queue.Empty:
-                dead = [p.exitcode for p in procs
-                        if p.exitcode not in (None, 0)]
-                if dead and not failed:
-                    raise RuntimeError(f"a rank process exited with code "
-                                       f"{dead[0]} before reporting") from None
+                gone = [r for r, p in enumerate(procs)
+                        if r not in got and r not in failed
+                        and p.exitcode not in (None, 0)]
+                if gone and died is None:
+                    # a rank that dies hard may be the echo of another
+                    # rank's failure (its group torn down) whose report is
+                    # still on its way: wait a grace window for it
+                    died = procs[gone[0]].exitcode
+                    deadline = min(deadline, time.monotonic() + GRACE_S)
+                if failed and len(got) + len(failed) + len(gone) == world:
+                    break
                 continue
             if ok:
                 got[rank] = pickle.loads(out)
@@ -211,4 +230,7 @@ def spawn(fn, world: int, *, backend: str, device="cuda", init_file: str,
         raise RuntimeError("\n".join(
             f"rank {r} of {world} failed:\n{tb}"
             for r, tb in sorted(failed.items())))
+    if len(got) < world:
+        raise RuntimeError(f"a rank process exited with code {died} "
+                           f"before reporting")
     return [got[r] for r in range(world)]

@@ -43,6 +43,8 @@ from remixfusion_tpu_torch.utils import imageio
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# threads resampling and writing frames (zlib and numpy release the GIL)
+_WORKERS = min(8, os.cpu_count() or 1)
 SCENE_CONFIG = os.path.join(ROOT, "configs", "Synthetic", "synthetic.yaml")
 LAYOUTS = ("tum", "bs3d", "replica", "scannet", "fastsyn", "azure",
            "largeindoor", "iphone")
@@ -126,26 +128,29 @@ def color_source_positions(target_cfg, color_hw):
     return px, py
 
 
-def render_frames(target_cfg, n_frames: int, color_hw=None, workers=None,
+def render_frames(target_cfg, n_frames: int, color_hw=None,
                   degrees_per_frame: float = 1.2):
     """[(rgb uint8 [Hc, Wc, 3] RGB, depth float32 [H, W], c2w)] for the
-    first n_frames of the orbit; renders run on `workers` threads."""
+    first n_frames of the orbit, rendered into the scene's disk cache (in
+    worker processes when there are enough, SyntheticDataset.render_missing)
+    and read back from it, resampled on threads."""
     ds = scene_dataset(target_cfg, n_frames, degrees_per_frame)
     hw = (int(target_cfg["cam"]["H"]), int(target_cfg["cam"]["W"]))
     color_hw = hw if color_hw is None else tuple(color_hw)
     resample = (color_hw != hw
                 or target_cfg["cam"].get("distortion") is not None)
     pos = color_source_positions(target_cfg, color_hw) if resample else None
+    ds.render_missing(range(n_frames))
 
     def one(i):
-        rgb, depth = ds.render(ds.poses[i])
-        rgb8 = (rgb * 255).astype(np.uint8)  # the scene's own quantization
+        # the cache holds the scene's own quantization of the colour
+        with np.load(ds._disk_cache_path(i)) as data:
+            rgb8, depth = data["rgb"], data["depth"]
         if pos is not None:
             rgb8 = _bilinear_u8(rgb8, *pos)
         return rgb8, depth, np.asarray(ds.poses[i], np.float32)
 
-    workers = workers or min(8, os.cpu_count() or 1)
-    with ThreadPoolExecutor(workers) as ex:
+    with ThreadPoolExecutor(_WORKERS) as ex:
         return list(ex.map(one, range(n_frames)))
 
 
@@ -170,12 +175,13 @@ def _tq_row(c2w):
 
 
 def write_layout(target_cfg, layout: str, out_dir: str, n_frames: int,
-                 color_hw=None, workers=None, degrees_per_frame: float = 1.2):
-    """Render n_frames and write them under out_dir in `layout`'s format.
-    Returns the ground-truth c2w poses [n_frames, 4, 4]."""
+                 color_hw=None, degrees_per_frame: float = 1.2):
+    """Render n_frames and write them under out_dir in `layout`'s format
+    (the frames' files on threads). Returns the ground-truth c2w poses
+    [n_frames, 4, 4]."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r} (known: {LAYOUTS})")
-    frames = render_frames(target_cfg, n_frames, color_hw, workers,
+    frames = render_frames(target_cfg, n_frames, color_hw,
                            degrees_per_frame)
     scale = float(target_cfg["cam"]["png_depth_scale"])
 
@@ -189,17 +195,19 @@ def write_layout(target_cfg, layout: str, out_dir: str, n_frames: int,
         return path
 
     os.makedirs(out_dir, exist_ok=True)
-    rows = []
-    for i, (rgb8, depth, c2w) in enumerate(frames):
+
+    def write(i):
+        """frame i's files; its row of the layout's pose file, if any."""
+        rgb8, depth, c2w = frames[i]
         if layout == "tum":
             t = f"{1000.0 + i / 30.0:.6f}"
             imageio.write_png(sub("rgb", f"{t}.png"), rgb8)
             imageio.write_png(sub("depth", f"{t}.png"), d16(depth))
-            rows.append((t, _tq_row(c2w)))
+            return t, _tq_row(c2w)
         elif layout == "bs3d":
             imageio.write_png(sub("color", f"{i}.png"), rgb8)
             imageio.write_png(sub("depth", f"{i}.png"), d16(depth))
-            rows.append(f"{i} {_tq_row(c2w)}")
+            return f"{i} {_tq_row(c2w)}"
         elif layout in ("replica", "fastsyn"):
             if layout == "replica":
                 _write_jpeg(sub("results", f"frame{i:06d}.jpg"), rgb8)
@@ -208,7 +216,7 @@ def write_layout(target_cfg, layout: str, out_dir: str, n_frames: int,
             else:
                 imageio.write_png(sub("color", f"{i}.png"), rgb8)
                 imageio.write_png(sub("depth", f"{i}.png"), d16(depth))
-            rows.append(" ".join(f"{v:.9g}" for v in c2w.reshape(-1)))
+            return " ".join(f"{v:.9g}" for v in c2w.reshape(-1))
         elif layout in ("scannet", "azure", "largeindoor"):
             name = f"{i:06d}" if layout == "azure" else f"{i}"
             if layout == "largeindoor":
@@ -221,7 +229,10 @@ def write_layout(target_cfg, layout: str, out_dir: str, n_frames: int,
             imageio.write_png(sub("images", f"{i:06d}.png"), rgb8)
             imageio.write_png(sub("depth", f"{i:06d}.png"), d16(depth))
             tq = _tq_row(c2w).replace(" ", ",")
-            rows.append(f"{i / 30.0:.6f},{i},{tq}")
+            return f"{i / 30.0:.6f},{i},{tq}"
+
+    with ThreadPoolExecutor(_WORKERS) as ex:
+        rows = [r for r in ex.map(write, range(len(frames))) if r is not None]
     if layout == "tum":
         with open(os.path.join(out_dir, "rgb.txt"), "w") as f:
             f.write("# timestamp filename\n" + "".join(

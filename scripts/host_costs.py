@@ -1,17 +1,21 @@
-"""Host costs of two numpy paths of the port, each beside the version it
+"""Host costs of numpy paths of the port, each beside the version it
 replaced, on the machine it runs on (no card needed):
 
-  python scripts/host_costs.py [--frames 0 50 99]
+  python scripts/host_costs.py [--frames 0 50 99] [--pool 48]
 
 - PST tables: seconds to generate the candidate tables of
   configs/Synthetic/synthetic_corridor.yaml's RO.PST_size
   (tracking/pst.load_pst with its process-wide cache empty, as every
   pipeline paid before the cache) against a call that finds them cached.
 - Rendering: host ms of one 640x480 frame of the corridor building
-  (SyntheticLargeDataset.render, serial) with the box slab test on
-  [_SLAB_ROWS, B] blocks one axis at a time (datasets/synthetic._slab_hits)
-  against the [M, B, 3] broadcast it replaced; the two renders are held
-  bitwise equal.
+  (SyntheticLargeDataset.render, serial) against the same render with the
+  box slab test on [M, B, 3] arrays over every box (the broadcast the
+  blocked, culled _slab_hits replaced); the renders are held bitwise
+  equal.
+- The render pool: --pool frames of the walk (from frame 400) rendered by
+  SyntheticLargeDataset.render_missing (datasets/synthetic._RENDER_WORKERS
+  workers) into an empty temporary cache, as a run's preload renders
+  them: seconds per frame.
 
 Prints one JSON line.
 """
@@ -35,8 +39,9 @@ from remixfusion_tpu_torch.tracking import pst  # noqa: E402
 CONFIG = os.path.join(ROOT, "configs", "Synthetic", "synthetic_corridor.yaml")
 
 
-def slab_hits_broadcast(lo_o, hi_o, inv_d):
-    """The slab test as the renderer had it: [M, B, 3] arrays."""
+def slab_hits_broadcast(lo_o, hi_o, inv_d, slopes=None, box_slopes=None):
+    """The slab test as the renderer had it: [M, B, 3] arrays, every box
+    (the culling arguments ignored)."""
     t0 = lo_o[None, :, :] * inv_d[:, None, :]
     t1b = hi_o[None, :, :] * inv_d[:, None, :]
     tmin = np.minimum(t0, t1b).max(axis=2)
@@ -55,11 +60,35 @@ def render_ms(ds, frames, slab_fn):
     return out, ms
 
 
+def render_pool(cfg, n):
+    """Seconds per frame of render_missing over n frames of the walk from
+    frame 400, into an empty temporary cache."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tempfile.tempdir = tmp
+        try:
+            ds = get_dataset(cfg)
+            t0 = time.perf_counter()
+            done = ds.render_missing(range(400, 400 + n))
+            s = (time.perf_counter() - t0) / n
+        finally:
+            tempfile.tempdir = None
+    if done != n:
+        sys.exit(f"rendered {done} of {n} frames")
+    return s
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, nargs="+", default=[0, 50, 99])
+    ap.add_argument("--pool", type=int, default=0,
+                    help="frames rendered by render_missing (0: none)")
     args = ap.parse_args()
     cfg = load_config(CONFIG)
+    pool = ({"frames": args.pool, "workers": synthetic._RENDER_WORKERS,
+             "s_per_frame": render_pool(cfg, args.pool)}
+            if args.pool else None)
     sizes = list(cfg["RO"]["PST_size"])
 
     pst._GENERATED.clear()
@@ -91,6 +120,7 @@ def main():
                    "blocked_ms": new_ms, "broadcast_ms": old_ms,
                    "blocked_again_ms": new2_ms,
                    "bitwise_equal": bool(same)},
+        "render_pool": pool,
         "cpu_count": os.cpu_count()}))
     if not same:
         sys.exit("the two slab tests render different frames")

@@ -132,7 +132,7 @@ def cpu(n, scale, fx400):
     cfg["data"]["datadir"] = os.path.join(ROOT, "build", "drift",
                                           f"cpu_{tag}")
     cfg["data"]["output"] = os.path.join(ROOT, "build", "drift", "cpu_out")
-    write_layout(cfg, "largeindoor", cfg["data"]["datadir"], n, workers=2)
+    write_layout(cfg, "largeindoor", cfg["data"]["datadir"], n)
 
     j = RemixFusionTPU(copy.deepcopy(cfg))
     p0 = j._first_pose(j.dataset[0])

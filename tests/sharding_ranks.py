@@ -3,7 +3,9 @@ every case of that file on one rank of a gloo world on the CPU and returns
 numpy results. launch.spawn re-imports this module in every rank, so it
 imports numpy, torch and the port only (never JAX nor the JAX package)."""
 
+import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -30,6 +32,10 @@ MODES = ("pallas", "gather", "brick")
 GUARD_SEARCH = 5.0
 # the ray-shift generator's seed on rank 0 (rank r seeds SHIFT_SEED + r)
 SHIFT_SEED = 100
+# how long the last rank of fail_late_on_last holds its report back: past
+# the 5 s that spawn once waited on the queue before it read a dead rank
+# process as the failure
+RACE_DELAY_S = 7.0
 
 
 def t(a):
@@ -195,3 +201,19 @@ def fail_on_last(rank, world):
     if rank == world - 1:
         raise ValueError(f"rank {rank} stops here")
     torch.distributed.barrier()
+
+
+def fail_late_on_last(rank, world, flag):
+    """The last rank raises and reports RACE_DELAY_S late; the others exit
+    hard as soon as it has raised (the `flag` file), long before its report
+    can reach the caller: the order in which a rank that dies of another
+    rank's failure can be seen first."""
+    if rank == world - 1:
+        try:
+            raise ValueError(f"rank {rank} stops here")
+        finally:
+            open(flag, "w").close()
+            time.sleep(RACE_DELAY_S)
+    while not os.path.exists(flag):
+        time.sleep(0.01)
+    os._exit(1)

@@ -115,22 +115,29 @@ def _bench_cfg(tmp):
     return cfg, n
 
 
-def test_run_bench_matches_jax_run_attempt(tmp_path):
-    """The measured run on tiny_config (12 frames, warmup 2) against the
-    JAX bench's run_attempt on the same config: the same timed frames,
-    mapping rounds (bench.py:206-213's interleave) and final mapping_idx;
-    RO-only ATE within 0.1 cm of the JAX run's."""
-    cfg, n = _bench_cfg(tmp_path)
-    assert n == N and cfg["data"]["synthetic"]["orbit_degrees"] == 1.2 * N
+def _run_against_jax(cfg, n, tmp_path, ro_tol=0.1):
+    """run_bench on cfg (n frames, warmup WARMUP, no mesh block) on the CPU
+    and the JAX bench's run_attempt on the same config: the same timed
+    frames, mapping rounds (bench.py:206-213's interleave), final
+    mapping_idx, map iterations, re-centres and keyframes; the RO-only ATE
+    (and each row of the ATE over the first n frames) within ro_tol cm of
+    the JAX run's (0.1: the band of test_slice_free_running_ate_matches_
+    jax), the full ATE within 0.5 cm (BA moves it a little differently in
+    each package); every pose finite; no kernel launch on the CPU. Returns
+    the port's result."""
     jcfg = copy.deepcopy(cfg)
     jcfg["data"]["output"] = str(tmp_path / "jax")
     res_j, j, _ = bench.run_attempt(jcfg, n, WARMUP)
     rounds_j, idx_j = len(j.stats["map_time"]), j.mapping_idx
-    j.convert_relative_pose_npy()  # bench.py's ATE block harvests first
+    recentres_j, keyframes_j = len(j.mv.frame_to_vrange), len(j.kfdb)
+    poses_j = j.convert_relative_pose_npy()  # bench.py's ATE block
     gt = j.pose_gt
-    ate_j = 100 * evaluate_ate({float(i): gt[i] for i in range(n)},
-                               {float(i): j.RO_c2w_data[i]
-                                for i in range(n)})["rmse"]
+    gt_n = {float(i): gt[i] for i in range(n)}
+    ate_j = 100 * evaluate_ate(gt_n, {float(i): j.RO_c2w_data[i]
+                                      for i in range(n)})["rmse"]
+    full_j = 100 * evaluate_ate(gt_n, {float(i): poses_j[i]
+                                       for i in range(n)})["rmse"]
+    ro_j = np.array(j.RO_c2w_data[:n])
     j.close()
 
     res = bench_torch.run_bench(cfg, n, WARMUP, torch.device("cpu"),
@@ -139,12 +146,73 @@ def test_run_bench_matches_jax_run_attempt(tmp_path):
     assert res["frames"] == n - WARMUP
     assert res["rounds"] == rounds_j > 0
     assert res["mapping_idx"] == idx_j
-    assert abs(res["ate_rmse_cm_ro_only"] - ate_j) < 0.1, (
+    assert abs(res["ate_rmse_cm_ro_only"] - ate_j) < ro_tol, (
         res["ate_rmse_cm_ro_only"], ate_j)
+    assert abs(res["ate_rmse_cm"] - full_j) < 0.5, (res["ate_rmse_cm"],
+                                                     full_j)
+    for k, _, ro in res["ate_by_frames"]:
+        ref = 100 * evaluate_ate(
+            {float(i): gt[i] for i in range(k)},
+            {float(i): ro_j[i] for i in range(k)})["rmse"]
+        assert abs(ro - ref) < ro_tol, (k, ro, ref)
+    assert res["poses_finite"]
     assert res["tracked_frames"] == n - 1
+    assert res["launches"] == {"brick_eval": 0, "hash_table_grad": 0}
     assert np.isfinite(res["fps"]) and res["fps"] > 0
     assert res["map_iters"] == rounds_j * cfg["mapping"]["iters"]
+    assert res["recentres"] == recentres_j
+    assert res["keyframes"] == keyframes_j
     assert 0.0 <= res["sel_la_hit"] <= 1.0
+    return res
+
+
+def test_run_bench_matches_jax_run_attempt(tmp_path):
+    """The measured run on tiny_config (12 frames, warmup 2) against the
+    JAX bench's run_attempt on the same config (_run_against_jax)."""
+    cfg, n = _bench_cfg(tmp_path)
+    assert n == N and cfg["data"]["synthetic"]["orbit_degrees"] == 1.2 * N
+    res = _run_against_jax(cfg, n, tmp_path)
+    assert res["recentres"] == 0 and res["ate_by_frames"] == []
+
+
+# the tiny corridor: the frames run, the walk's length in frames (~5 cm a
+# frame), and the RO-only ATE band: free-running on a walk that re-centres,
+# a discrete step of either tracker moves every later frame (each frame
+# is held within 2 mm in test_torch_pipeline's corridor lockstep); 0.16 cm
+# apart at these widths
+N_CORRIDOR, CORRIDOR_WALK, CORRIDOR_RO_TOL = 12, 300, 0.3
+
+
+def test_run_bench_matches_jax_run_attempt_on_the_corridor(tmp_path,
+                                                           monkeypatch):
+    """The waypoint branch (bench.py keeps a synthetic_large walk's frame
+    count) on test_torch_pipeline's small two-room building with its
+    tracker settings, its volume re-centred whenever the camera has moved
+    10 cm: the first N_CORRIDOR frames of the walk against the JAX bench's
+    run_attempt (_run_against_jax, re-centres included), with the ATE over
+    the first 4, 8 and 12 frames (ATE_SPAN 4) against the JAX run's."""
+    bound = [[0.0, 7.0], [0.0, 3.0], [0.0, 5.4]]
+    cfg = tiny_config(
+        dataset="synthetic_large",
+        data={"output": str(tmp_path), "exp_name": "bench", "synthetic": {
+            "n_frames": CORRIDOR_WALK, "n_rooms": 2, "room_width": 3.4,
+            "room_depth": 3.2, "corridor_width": 2.0, "n_boxes_per_room": 4,
+            "n_spheres_per_room": 2, "ramp_frames": 3}},
+        RO={"particle_iter_lens": 6, "depth_level": [4, 2, 1],
+            "eval_mode": "pallas", "PST_size": [256, 128, 128],
+            "init_size": 0.02, "count_search": 100,
+            "tsdf_interp": "nearest"},
+        volume={"voxel_size": 0.025, "t_treshold": 0.1},
+        tracking={"harvest_depth": 1},
+        mapping={"bound": bound, "marching_cubes_bound": bound})
+    assert bench_torch.configure(cfg, "corridor.yaml", {}) == CORRIDOR_WALK
+    cfg["data"]["output"] = str(tmp_path)
+    monkeypatch.setattr(bench_torch, "ATE_SPAN", 4)
+    res = _run_against_jax(cfg, N_CORRIDOR, tmp_path, CORRIDOR_RO_TOL)
+    assert res["recentres"] >= 1
+    assert [row[0] for row in res["ate_by_frames"]] == [4, 8, 12]
+    assert res["ate_by_frames"][-1][1:] == [res["ate_rmse_cm"],
+                                            res["ate_rmse_cm_ro_only"]]
 
 
 def _guarded(code_args, env):

@@ -635,7 +635,7 @@ def test_write_layout_loads_in_both_packages(tmp_path, layout, color_hw):
             "largeindoor": "Largeindoor"}.get(layout, layout)
     cfg = tiny_config(dataset=name, data={"datadir": str(tmp_path)})
     cfg["cam"]["png_depth_scale"] = 5000.0 if layout == "tum" else 1000.0
-    gt = write_layout(cfg, layout, str(tmp_path), 3, color_hw, workers=1)
+    gt = write_layout(cfg, layout, str(tmp_path), 3, color_hw)
     update_cam(cfg["cam"])
     ds_t = get_dataset(copy.deepcopy(cfg))
     _assert_same(ds_t, jax_get_dataset(copy.deepcopy(cfg)),

@@ -398,7 +398,7 @@ def test_tum_layout_run_matches_jax(tmp_path):
                       crop_size=[40, 56],
                       distortion=[0.2624, -0.9531, -0.0054, 0.0026, 1.1633])
     cfg["print_ape"] = 1
-    write_layout(cfg, "tum", str(tmp_path / "tum"), N, workers=1)
+    write_layout(cfg, "tum", str(tmp_path / "tum"), N)
     cfg["data"]["datadir"] = str(tmp_path / "tum")
 
     j = RemixFusionTPU(copy.deepcopy(cfg))

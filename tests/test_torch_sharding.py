@@ -469,3 +469,14 @@ def test_spawn_returns_results_by_value_and_raises_a_failed_rank(tmp_path):
         spawn(sharding_ranks.fail_on_last, 2, backend="gloo", device="cpu",
               init_file=str(tmp_path / "b"), timeout_s=60)
     assert "ValueError: rank 1 stops here" in str(e.value)
+
+
+def test_spawn_raises_the_failure_that_a_dead_rank_died_of(tmp_path):
+    """Rank 0 exits hard right after rank 1 raised, and rank 1's report
+    comes RACE_DELAY_S later: the caller still raises rank 1's failure with
+    its traceback, not the dead rank's exit."""
+    with pytest.raises(RuntimeError, match="rank 1 of 2 failed") as e:
+        spawn(sharding_ranks.fail_late_on_last, 2, backend="gloo",
+              device="cpu", init_file=str(tmp_path / "b"), timeout_s=60,
+              args=(str(tmp_path / "raised"),))
+    assert "ValueError: rank 1 stops here" in str(e.value)

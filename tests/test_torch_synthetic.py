@@ -155,6 +155,67 @@ def test_large_scene_render_bitwise(corridor, frame):
     assert (d_t > 0).mean() > 0.5
 
 
+def test_large_scene_render_bitwise_along_the_walk():
+    """Every 100th frame of the walk through both ray tracers at a 120 x 160
+    camera (several blocks of the box culling and two chunks of rays a
+    frame): the port's renderer skips only boxes a block cannot hit."""
+    cfg = _corridor(H=120)
+    ds_t, ds_j = get_dataset(copy.deepcopy(cfg)), \
+        jax_get_dataset(copy.deepcopy(cfg))
+    for frame in range(0, 800, 100):
+        rgb_t, d_t = ds_t.render(ds_t.poses[frame])
+        rgb_j, d_j = ds_j.render(ds_j.poses[frame])
+        assert np.array_equal(d_t, d_j), frame
+        assert np.array_equal(rgb_t, rgb_j), frame
+
+
+def test_box_slopes_hold_every_ray_that_hits_the_box():
+    """_box_slopes bounds the camera-frame slopes of every pixel ray that
+    the renderer's slab test finds entering a box in front of the camera,
+    for boxes in front of, behind and through the camera plane; and it
+    does exclude rays, so a block of rays skips boxes."""
+    from remixfusion_tpu_torch.core.rays import get_camera_rays
+    from remixfusion_tpu_torch.datasets.synthetic import (_SLOPE_PAD,
+                                                          _box_slopes)
+
+    rng = np.random.default_rng(3)
+    dirs = get_camera_rays(48, 64, 30.0, 30.0, 31.5, 23.5).reshape(-1, 3)
+    slopes = dirs[:, :2].astype(np.float64) / dirs[:, 2:]
+    hits = missed = 0
+    for _ in range(20):
+        eye = rng.uniform(-1.0, 1.0, 3)
+        c2w = _look_at(eye, eye + rng.uniform(-1.0, 1.0, 3))
+        lo = rng.uniform(-3.0, 3.0, (16, 3))
+        hi = lo + rng.uniform(0.05, 2.0, (16, 3))
+        box_s = _box_slopes(lo, hi, c2w)
+        d = (dirs @ c2w[:3, :3].T).astype(np.float64)  # as render() does
+        inv = np.where(d != 0, 1.0 / d, 1e30)
+        o = c2w[:3, 3]
+        a = (lo - o)[None] * inv[:, None]
+        b = (hi - o)[None] * inv[:, None]
+        tmin = np.minimum(a, b).max(-1)
+        tmax = np.maximum(a, b).min(-1)
+        hit = (tmax > tmin) & (tmin > 1e-6)
+        held = ((slopes[:, None, 0] >= box_s[None, :, 0] - _SLOPE_PAD)
+                & (slopes[:, None, 0] <= box_s[None, :, 1] + _SLOPE_PAD)
+                & (slopes[:, None, 1] >= box_s[None, :, 2] - _SLOPE_PAD)
+                & (slopes[:, None, 1] <= box_s[None, :, 3] + _SLOPE_PAD))
+        assert (held | ~hit).all()
+        hits += int(hit.sum())
+        missed += int((~held).sum())
+    assert hits > 1000 and missed > 1000
+
+
+def test_large_scene_gt_mesh_bitwise():
+    """The ground-truth mesh of the small building at 8 cm (227 k SDF
+    points, four chunks on threads) bitwise the JAX package's."""
+    cfg = _large_cfg()
+    pv, pf = get_dataset(copy.deepcopy(cfg)).gt_mesh(voxel_size=0.08)
+    jv, jf = jax_get_dataset(copy.deepcopy(cfg)).gt_mesh(voxel_size=0.08)
+    assert len(pf) > 0
+    assert np.array_equal(pv, jv) and np.array_equal(pf, jf)
+
+
 # ------------------------------------------- the round-4 invariants
 
 
@@ -255,9 +316,14 @@ def test_large_scene_render_depth_matches_sdf():
 
 
 def test_render_missing_fills_the_cache_in_parallel(tmp_path, monkeypatch):
-    """render_missing renders on threads into the disk cache the frames it
+    """render_missing renders in worker processes (forced here: a batch
+    this small renders in-process) into the disk cache the frames it
     lacks; __getitem__ then serves them bitwise as a cold render does."""
     monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
+    monkeypatch.setattr(
+        "remixfusion_tpu_torch.datasets.synthetic._WORKER_RAYS", 0)
+    monkeypatch.setattr(
+        "remixfusion_tpu_torch.datasets.synthetic._RENDER_WORKERS", 2)
     cfg = _large_cfg(n_frames=40)
     cfg["cam"].update(H=24, W=32, fx=20.0, fy=20.0, cx=15.5, cy=11.5)
     ds = get_dataset(copy.deepcopy(cfg))
