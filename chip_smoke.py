@@ -23,7 +23,15 @@ prints no result line):
      run ends in finalize, outside the timed loop: mesh.ply (the residual
      field's SDF and weight queried on the card over the dense 3 cm grid
      of the 4 m marching-cubes bound, 134^3 = 2.41 M points; marching
-     tetrahedra on the host) and mesh_cull_occlusion.ply;
+     tetrahedra on the host) and mesh_cull_occlusion.ply. Then the grid's
+     bf16 query mirror (the hot query's read on every map, BA and render
+     step, as in the JAX package): bitwise the rounding of the grid;
+     query_color_sdf on MIRROR_POINTS points near the last frame's surface
+     within MIRROR_TOL of a CPU copy of the scene (grid, mirror and
+     parameters); the mirror's query against the float32 grid's within
+     MIRROR_REL (2^-8, bf16's unit roundoff) of the corners' blended
+     magnitudes; the mirror's bytes and the largest gap printed in a
+     {"mirror": ...} line;
   2b. mesh A: both meshes exist, are non-empty and have every vertex in
      [-0.5, 4.5]^3; the card's SDF grid agrees with a CPU copy of the same
      scene on a fixed 65,536-point subset of the grid within 1e-4 absolute
@@ -75,8 +83,12 @@ prints no result line):
      table's pixel split, brick_eval_volume's split_for) and within phase
      3's tolerance of the plain version's, the same on every rank; the
      poses within POSE_TOL, the shifted one of the single process's from
-     SHIFT_SEED (and more than POSE_TOL off its pose from SHIFT_SEED + 1); the concatenated slabs and the slab query
-     bitwise integrate_global's grid and query_gbv; the first map step's
+     SHIFT_SEED (and more than POSE_TOL off its pose from SHIFT_SEED + 1);
+     the concatenated slabs (fused by sharded_fuse_pack_gbq) bitwise
+     integrate_global's grid and weights and their bf16 mirrors bitwise its
+     rounding; the slab query bitwise query_gbv and the slabs' mirror
+     query bitwise query_gbq (and not the float32 query's bits); the map
+     steps read the mirror on both sides; the first map step's
      parameters within STEP_RTOL / STEP_ATOL (tests/test_sharding.py's),
      each parameter's update within STEP_UPDATE_REL of the largest entry
      of the single-process update (a step moves the hash table by ~1e-8,
@@ -257,7 +269,8 @@ prints no result line):
      figure written; then `rendering_eval_torch.py --config <that copy>
      --gap 5` in a fresh process scores the checkpoint on the card against
      the sanity bars RENDER_BARS, printed beside the record (RENDER_TARGET)
-     in a {"render_eval": ...} line;
+     and the float32 read's (FLOAT32_READ_RECORD) in a {"render_eval": ...}
+     line;
   14. live: LIVE_FRAMES frames of configs/Synthetic/verify_small.yaml with
      the live viewer (viz.live 1, live_every 2, live_render_every 4);
      after the run and before close(), /state.json and /frame fetched from
@@ -279,8 +292,9 @@ prints no result line):
      frame (3,980), hash_table_grad twice per map iteration of the timed
      loop in B and never in A. Printed: fps, ms per round, the frames
      over 1 s, peak memory, the phase wall and the quality beside
-     BENCH_r05.json's (BENCH_RECORD); the child's whole stderr is kept in
-     build/smoke/bench_<A|B>.log;
+     BENCH_r05.json's (BENCH_RECORD) and beside the port's before its hot
+     query read the mirror (FLOAT32_READ_RECORD); the child's whole stderr
+     is kept in build/smoke/bench_<A|B>.log;
   16. the kernels JSON line, a {"phase_wall_s": ...} line; the card's name
      and power limit; and last the {"ok": true, ...} line.
 Every kernel is timed two ways: device_ms, the device time of one call (a
@@ -381,6 +395,16 @@ FUSE_TOL = 1e-5
 MESH_BOX = (-0.5, 4.5)
 SDF_TOL = 1e-4
 SDF_SUBSET = 65536
+# slice A's bf16 query mirror: MIRROR_POINTS points within 10% of the last
+# frame's depth along its rays, queried on the card and on a CPU copy of
+# the scene (within MIRROR_TOL); the mirror's blend against the float32
+# grid's within MIRROR_REL (bf16's unit roundoff, 8 significant bits) of
+# the blend of the corners' magnitudes, plus MIRROR_SLACK for the float32
+# blends' own rounding
+MIRROR_POINTS = 65536
+MIRROR_TOL = 1e-4
+MIRROR_REL = 2.0 ** -8
+MIRROR_SLACK = 1e-6
 F1_BAR = 0.90
 TOL_MAX, TOL_MEAN = 5e-3, 1e-4
 HASH_TOL = 1e-5
@@ -445,6 +469,16 @@ CORRIDOR_BENCH_ATE_BAR_CM = 100.0
 CORRIDOR_RECORD = {"ate_rmse_cm": 59.14, "ate_rmse_cm_ro_only": 59.10,
                    "accuracy_cm": 13.3, "completion_cm": 21.5, "f1": 0.41,
                    "frames_per_recentre": 14, "gather_ate_rmse_cm": 39.6}
+# the port before its hot query read the bf16 mirror (its hot query read
+# the float32 grid): this script's numbers on the parent commit, on an
+# H100 80GB HBM3 at 700 W (PERF.md section 6, PR 14); printed beside
+# [bench A], [bench B] and [render eval], no bar
+FLOAT32_READ_RECORD = {
+    "bench A": {"ate_rmse_cm": 0.9434, "ate_rmse_cm_ro_only": 0.9717,
+                "f1": 0.9740},
+    "bench B": {"ate_rmse_cm": 0.9712, "ate_rmse_cm_ro_only": 0.9717,
+                "f1": 0.9714},
+    "render eval": {"psnr": 27.787, "ssim": 0.9234}}
 
 
 def fail(msg):
@@ -641,6 +675,89 @@ def phase_slice(torch, label, hook=None):
                for p in slam.scene.parameters()):
         fail(f"slice {label}: non-finite scene parameter")
     return slam, out, launches
+
+
+def check_mirror(torch, slam, frames):
+    """Slice A's bf16 query mirror after its run, on the card: bitwise the
+    rounding of the float32 grid; query_color_sdf on MIRROR_POINTS points
+    near the last frame's surface within MIRROR_TOL of a CPU copy of the
+    scene (grid, mirror and parameters); the mirror's blend against the
+    float32 grid's within MIRROR_REL of the blend of the corners'
+    magnitudes (+ MIRROR_SLACK). Returns the record."""
+    import numpy as np
+
+    from remixfusion_tpu_torch.models.scene_rep import CORNERS
+    from remixfusion_tpu_torch.utils.convert import scene_from_numpy, \
+        scene_to_numpy
+
+    t0 = time.time()
+    scene = slam.scene
+    if scene.gbq is None or scene.gbq.dtype != torch.bfloat16:
+        fail("slice A: the scene holds no bf16 query mirror")
+    if not torch.equal(scene.gbq, scene.gbv.to(torch.bfloat16)):
+        fail("slice A: the mirror is not the rounding of the grid")
+    f = slam.dataset[frames - 1]
+    depth = np.asarray(f["depth"], np.float32).reshape(-1)
+    rng = np.random.default_rng(0)
+    idx = rng.choice(np.flatnonzero(depth > 0), MIRROR_POINTS,
+                     replace=False)
+    z = depth[idx] * rng.uniform(0.9, 1.1, MIRROR_POINTS).astype(np.float32)
+    c2w = np.asarray(f["c2w"], np.float32)
+    dirs = np.asarray(f["direction"], np.float32).reshape(-1, 3)[idx]
+    world = (dirs @ c2w[:3, :3].T) * z[:, None] + c2w[:3, 3]
+    pts = scene.normalize(torch.as_tensor(world, device=slam.device))
+    with torch.no_grad():
+        joint = scene.query_color_sdf(pts)
+        hot = scene.query_gbq(pts)
+        f32 = scene.query_gbv(pts)
+        R = scene.gbv_resolution
+        pos = pts * R
+        low = torch.clamp(torch.floor(pos), 0, R - 2)
+        frac = torch.clamp(pos - low, 0.0, 1.0)
+        li = low.long()
+        base = li[:, 0] * R * R + li[:, 1] * R + li[:, 2]
+        mag = scene.gbv.reshape(-1, 4)[base[:, None]
+                                       + scene.corner_off].abs()
+        w = torch.stack([(frac[:, 0] if dx else 1 - frac[:, 0])
+                         * (frac[:, 1] if dy else 1 - frac[:, 1])
+                         * (frac[:, 2] if dz else 1 - frac[:, 2])
+                         for dx, dy, dz in CORNERS], 1)
+        scale = (w[:, :, None] * mag).sum(1)
+    gap = (hot - f32).abs()
+    over = gap - (MIRROR_REL * scale + MIRROR_SLACK)
+    if not bool((over <= 0).all()):
+        fail(f"slice A: the mirror's query is off the float32 grid's by "
+             f"{float(over.max())} beyond {MIRROR_REL} of the corners' "
+             f"blended magnitude")
+    params, buffers = scene_to_numpy(scene)
+    cpu = scene_from_numpy(slam.config, slam.bound, slam.num_kf, params,
+                           buffers, device="cpu")
+    if not torch.equal(cpu.gbq, scene.gbq.cpu()):
+        fail("slice A: the CPU copy's mirror is not the card's")
+    with torch.no_grad():
+        ref = cpu.query_color_sdf(pts.cpu())
+    err = float((joint.cpu() - ref).abs().max())
+    if not err <= MIRROR_TOL:
+        fail(f"slice A: query_color_sdf through the mirror differs from "
+             f"the CPU recompute by {err} > {MIRROR_TOL}")
+    rec = {"mirror_bytes": scene.gbq.numel() * scene.gbq.element_size(),
+           "points": MIRROR_POINTS, "query_color_sdf_cpu_max_abs_err": err,
+           "mirror_vs_float32_max_abs": float(gap.max()),
+           "mirror_vs_float32_max_rel": float(
+               (gap / scale.clamp(min=1e-30)).max()),
+           "changed_fraction": float((gap > 0).any(1).float().mean()),
+           "wall_s": time.time() - t0}
+    print(f"[slice A] bf16 query mirror: {rec['mirror_bytes']} B "
+          f"({tuple(scene.gbq.shape)} bfloat16), bitwise the grid's "
+          f"rounding; query_color_sdf on {MIRROR_POINTS} points vs the CPU "
+          f"recompute max|d|={err:.3e} (tol {MIRROR_TOL}); mirror vs float32 "
+          f"grid query max|d|={rec['mirror_vs_float32_max_abs']:.3e}, max "
+          f"{rec['mirror_vs_float32_max_rel']:.3e} of the corners' blended "
+          f"magnitude (bound {MIRROR_REL:.3e}), "
+          f"{rec['changed_fraction']:.3f} of the points moved; "
+          f"{rec['wall_s']:.1f} s", flush=True)
+    print(json.dumps({"mirror": rec}), flush=True)
+    return rec
 
 
 def phase_mesh(slam, out, label, f1_bar=F1_BAR):
@@ -2085,7 +2202,12 @@ def phase_render_eval(torch):
             "online": {k: out[k] for k in ("ate_rmse_cm",
                                            "ate_rmse_cm_ro_only",
                                            "ms_per_frame", "ms_per_round")},
-            "launches": {"brick_eval": launches}}
+            "launches": {"brick_eval": launches},
+            "record_float32_read": FLOAT32_READ_RECORD["render eval"]}
+    print(f"[render eval] PSNR {metrics['psnr']:.3f} dB, SSIM "
+          f"{metrics['ssim']:.4f}; the float32 read (PR 13's port): "
+          f"{line['record_float32_read']}; JAX record {RENDER_TARGET}",
+          flush=True)
     print(json.dumps({"render_eval": line}), flush=True)
     return launches
 
@@ -2189,6 +2311,11 @@ def phase_bench(label):
                                        if res["recentres"] else None)
     else:
         line["record_BENCH_r05"] = BENCH_RECORD
+        line["record_float32_read"] = FLOAT32_READ_RECORD[f"bench {label}"]
+        print(f"{tag} ATE full / RO-only {q['ate_rmse_cm']:.3f} / "
+              f"{q['ate_rmse_cm_ro_only']:.3f} cm, mesh F1 {q['f1']:.4f}; "
+              f"the float32 read (PR 13's port): "
+              f"{line['record_float32_read']}", flush=True)
     print(json.dumps({"bench_phase": line}), flush=True)
     if label == "corridor":
         bound = np.asarray(cfg["mapping"]["marching_cubes_bound"])
@@ -2313,8 +2440,10 @@ def frame_inputs(torch, ds, i, c2w=None):
 def map_scene(torch, cfg, f0, device, comm=None, whole=True):
     """The map steps' scene: SceneRepresentation of cfg from seed 0 with
     frame f0 fused into the whole grid (whole), or a scene without a grid
-    reading the ranks' slabs, f0 fused into this rank's. Returns (scene,
-    slab); the slab (a SlabGrid) is None for the whole grid."""
+    reading the ranks' slabs, f0 fused into this rank's; either way with
+    the bf16 query mirror refreshed after the fuse, as the mapper keeps it.
+    Returns (scene, slab); the slab (a SlabGrid) is None for the whole
+    grid."""
     import numpy as np
 
     from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
@@ -2333,11 +2462,12 @@ def map_scene(torch, cfg, f0, device, comm=None, whole=True):
                                     generator=gen)
         tsdf_ops.integrate_global(scene.gbv, scene.gbw, *args,
                                   trunc_margin=trunc)
+        scene.refresh_gbq()
         return scene, None
     R = int(cfg["globalV"]["base_resolution"])
     slab = sharding.SlabGrid(R, comm, device)
-    sharding.sharded_fuse_frame(comm, R, trunc, *f["depth"].shape)(
-        slab.gbv, slab.gbw, *args)
+    sharding.sharded_fuse_pack_gbq(comm, R, trunc, *f["depth"].shape)(
+        slab, *args)
     scene = SceneRepresentation(cfg, bound, NUM_KF, device=device,
                                 generator=gen, grid_rows=slab.rows)
     return scene, slab
@@ -2483,7 +2613,7 @@ def sharded_setup(torch, slam, frames, out_dir, cfg_b):
         gbv, gbw, depth, fr["rgb"].to(dev), fr["K"].to(dev), c2w,
         torch.as_tensor(slam.bound, device=dev),
         trunc_margin=slam.config["training"]["c_trunc"])
-    refs["grid"] = (gbv, gbw)
+    refs["grid"] = (gbv, gbw, gbv.to(torch.bfloat16))
 
     f0 = frame_inputs(torch, ds, 0)
     n = int(cfg_b["mapping"]["sample"])
@@ -2498,6 +2628,7 @@ def sharded_setup(torch, slam, frames, out_dir, cfg_b):
     pts = scene.normalize((rays[1][:, None] + rays[2][:, None]
                            * z[..., None]).reshape(-1, 3))
     refs["query"] = scene.query_gbv(pts)
+    refs["query_gbq"] = scene.query_gbq(pts)
     step = sharding.sharded_map_train_step(
         scene, torch.optim.SGD(scene.parameters(), lr=1e-2), None,
         loss_weights(cfg_b))
@@ -2573,14 +2704,15 @@ def sharded_rank(rank, world, path, cfg_a, cfg_b, out_dir, device="cuda"):
     del state, view, vn, tr
 
     R = int(cfg_a["globalV"]["base_resolution"])
-    fuse = sharding.sharded_fuse_frame(comm, R, cfg_a["training"]["c_trunc"],
-                                       inp["H"], inp["W"])
+    fuse = sharding.sharded_fuse_pack_gbq(
+        comm, R, cfg_a["training"]["c_trunc"], inp["H"], inp["W"])
     slab = sharding.SlabGrid(R, comm, dev)
-    fuse(slab.gbv, slab.gbw, fr["depth"], fr["rgb"], fr["K"], c2w,
+    fuse(slab, fr["depth"], fr["rgb"], fr["K"], c2w,
          torch.as_tensor(np.asarray(cfg_a["mapping"]["bound"], np.float32),
                          device=dev))
     out["slab"] = os.path.join(out_dir, f"slab_D{world}_r{rank}.pt")
-    torch.save((slab.gbv.cpu(), slab.gbw.cpu()), out["slab"])
+    torch.save((slab.gbv.cpu(), slab.gbw.cpu(), slab.gbq.cpu()),
+               out["slab"])
     out["bounds"] = fuse.bounds
     del slab
 
@@ -2603,6 +2735,7 @@ def sharded_rank(rank, world, path, cfg_a, cfg_b, out_dir, device="cuda"):
     pts = inp["pts"].to(dev)
     m = pts.shape[0] // world
     out["query"] = gscene.query_gbv(pts[rank * m:(rank + 1) * m]).cpu()
+    out["query_gbq"] = gscene.query_gbq(pts[rank * m:(rank + 1) * m]).cpu()
     gstep = sharding.gridsharded_map_train_step(
         gscene, torch.optim.SGD(gscene.parameters(), lr=1e-2), comm, lw)
     n0 = he.hash_table_grad.launches
@@ -2733,13 +2866,14 @@ def check_world(torch, D, res, refs, iters, R):
     rec["hash_max_abs_err"] = max(r["hash_err"] for r in res)
 
     slabs = [torch.load(r["slab"]) for r in res]
-    gbv = torch.cat([v for v, _ in slabs])
-    gbw = torch.cat([w for _, w in slabs])
-    if not (torch.equal(gbv, refs["grid"][0].cpu())
-            and torch.equal(gbw, refs["grid"][1].cpu())):
-        fail(f"{tag} the concatenated slabs are not integrate_global's grid")
+    for i, what in enumerate(("grid", "weights", "bf16 query mirror")):
+        if not torch.equal(torch.cat([sl[i] for sl in slabs]),
+                           refs["grid"][i].cpu()):
+            fail(f"{tag} the concatenated slabs' {what} are not the "
+                 f"single process's")
     print(f"{tag} fusion: slabs {[r['bounds'] for r in res]} of R={R} "
-          f"concatenated bitwise integrate_global's grid", flush=True)
+          f"concatenated bitwise integrate_global's grid and weights, and "
+          f"their bf16 mirrors bitwise its rounding", flush=True)
     for r in res:
         os.remove(r["slab"])
 
@@ -2748,6 +2882,12 @@ def check_world(torch, D, res, refs, iters, R):
     query = torch.cat([r["query"] for r in res])
     if not torch.equal(query, refs["query"].cpu()):
         fail(f"{tag} the slab query is not query_gbv's bits")
+    query_gbq = torch.cat([r["query_gbq"] for r in res])
+    if not torch.equal(query_gbq, refs["query_gbq"].cpu()):
+        fail(f"{tag} the slabs' mirror query is not query_gbq's bits")
+    if torch.equal(query_gbq, query):
+        fail(f"{tag} the mirror query equals the float32 query: the "
+             f"mirror was not read")
     e_grid, u_grid = close_params(res[0]["grid_params"], refs["params"],
                                   refs["params0"],
                                   f"{tag} grid-sharded map step")
@@ -2770,7 +2910,8 @@ def check_world(torch, D, res, refs, iters, R):
           f"step per rank {res[0]['dp_bytes']}", flush=True)
     print(f"{tag} grid-sharded map step: slab {res[0]['slab_shape']}, "
           f"the scene holds no grid, slab query bitwise "
-          f"query_gbv on {query.shape[0]} points, parameters max|d|="
+          f"query_gbv and the slabs' mirror query bitwise query_gbq on "
+          f"{query.shape[0]} points, parameters max|d|="
           f"{e_grid:.3e}, update max|d| {u_grid:.3e} of its largest "
           f"entry; {res[0]['grid_ms']:.2f} ms per step; collective "
           f"bytes per step per rank {res[0]['grid_bytes']}", flush=True)
@@ -2901,6 +3042,7 @@ def main():
     wall["build"] = time.time() - t0
     t0 = time.time()
     slam, out_a, launches_a = phase_slice(torch, "A")
+    check_mirror(torch, slam, out_a["frames"])
     wall["slice A"] = time.time() - t0
     t0 = time.time()
     phase_mesh(slam, out_a, "A")

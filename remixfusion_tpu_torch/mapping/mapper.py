@@ -5,6 +5,9 @@ mp_slam/mapper.py:191-950):
   - integrate_keyframe: TSDF fusion of a keyframe into the explicit global
     grid (ops/tsdf.integrate_global) over the host-selected frustum tiles,
     or the dense sweep where the selection's budget reaches the whole grid;
+    it and reset_global_volume refresh the grid's bf16 query mirror whole
+    (SceneRepresentation.refresh_gbq), where JAX refreshes the changed
+    tiles of its oct-packed rows: the same values;
   - map_step / map_step_dev: `iters` optimization steps of the residual
     field + decoders through the rendering losses and the TV smoothness,
     on host rays (first frame) or on rays sampled on the device from the
@@ -160,13 +163,13 @@ class Mapper:
     def integrate_keyframe(self, depth, rgb, K, c2w, bound,
                            obs_weight: float = 1.0, host_depth=None,
                            host_c2w=None, K_np=None, kf_index=None):
-        """Fuse a keyframe into the scene's global grid, in place
-        (reference mapper.py:823-872). depth [H, W], rgb [H, W, 3] in
-        [0, 1], K [3, 3], c2w [4, 4], bound [3, 2] (the config's
-        mapping.bound): tensors on the grid's device. With host_depth (+
-        host_c2w, K_np as numpy) only the selected frustum tiles are swept;
-        the host selection reads the bounds from the config, so it never
-        waits for the device."""
+        """Fuse a keyframe into the scene's global grid, in place, and
+        refresh its bf16 query mirror (reference mapper.py:823-872). depth
+        [H, W], rgb [H, W, 3] in [0, 1], K [3, 3], c2w [4, 4], bound [3, 2]
+        (the config's mapping.bound): tensors on the grid's device. With
+        host_depth (+ host_c2w, K_np as numpy) only the selected frustum
+        tiles are swept; the host selection reads the bounds from the
+        config, so it never waits for the device."""
         im_h, im_w = int(depth.shape[0]), int(depth.shape[1])
         offs = None
         if host_depth is not None:
@@ -179,14 +182,16 @@ class Mapper:
             trunc_margin=self.config["training"]["c_trunc"],
             obs_weight=obs_weight, tiles=offs,
             tile=tsdf_ops.pick_global_tile(s.gbv_resolution))
+        s.refresh_gbq()
 
     @torch.no_grad()
     def reset_global_volume(self):
         """clean_tsdf: tsdf 1, rgb 0, weights 0 (reference
-        mapper.py:161-183)."""
+        mapper.py:161-183); the bf16 query mirror follows."""
         self.scene.gbv.zero_()
         self.scene.gbv[..., 0] = 1.0
         self.scene.gbw.zero_()
+        self.scene.refresh_gbq()
 
     # ------------------------------------------------------------- losses
 

@@ -15,9 +15,16 @@ model/scene_rep.py:13-528):
     added onto the explicit values;
   - the RBA pose-refinement network.
 
-The JAX hot path reads the explicit grid through a bf16 mirror (`gbq`, a
-TPU layout); the port reads the float32 grid, which is `query_gbv`'s and
-the reference's semantics.
+The hot query (query_color_sdf: every map step, BA step and render) reads
+the explicit grid through its bf16 query mirror `gbq` [R, R, R, 4], as the
+JAX package does (scene_rep.query_gbvw_fast): every corner is the bf16
+rounding of the float32 grid, blended in float32. The mirror is state: None
+until the grid is first written (mapping/mapper.py refreshes it after every
+integrate and reset, slam/pipeline.py after every load), and the hot query
+reads the float32 grid while it is None. Every other query (query_gbv,
+query_gbw, query_sdf_res, the explicit-only and mesh queries) reads the
+float32 grid. JAX's oct-packed tile-major rows of the mirror and its
+incremental refresher are TPU layout and have no counterpart.
 
 Every random draw takes an explicit torch.Generator, and sample_z_vals and
 smoothness also accept their uniform draws as arguments, so tests can give
@@ -35,19 +42,33 @@ from remixfusion_tpu_torch.models.encodings import get_encoder
 from remixfusion_tpu_torch.models.rba import RBA
 
 
-GRID_WIDTH = {"gbv": 4, "gbw": 1}
+# corner k of a trilinear cell: (dx, dy, dz) = 000, 001, .., 111
+CORNERS = [(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+
+
+@torch.no_grad()
+def refresh_mirror(mirror, grid: torch.Tensor) -> torch.Tensor:
+    """The bf16 query mirror of `grid`: its rounding to nearest even,
+    written into `mirror` or, when that is None, into a new tensor (the
+    JAX mapper's _pack_gbq and incremental refresher give the same
+    values)."""
+    if mirror is None:
+        return grid.to(torch.bfloat16)
+    return mirror.copy_(grid)
 
 
 class SceneRepresentation(nn.Module):
     def __init__(self, config, bound_box, num_kf: int, device="cpu",
                  generator: torch.Generator | None = None, grid_rows=None):
         """grid_rows: None for a scene that holds its explicit grid (the
-        buffers gbv [R, R, R, 4] and gbw [R, R, R]); or a function (name,
-        base [N], offsets) -> [N, 8, C], the 8 corner rows (row base +
-        offsets[k]) of the flattened grid `name` held elsewhere, as
-        parallel/sharding.SlabGrid.rows reads the ranks' slabs. The scene
-        then holds no grid (gbv and gbw are None) and its queries read those
-        rows. The parameters' draws do not depend on it."""
+        buffers gbv [R, R, R, 4], gbw [R, R, R] and the mirror gbq, None
+        until refresh_gbq); or a function (name, base [N], offsets) ->
+        [N, 8, C], the 8 corner rows (row base + offsets[k]) of the
+        flattened grid `name` (gbv, gbw or gbq) held elsewhere, or None for
+        a grid held nowhere, as parallel/sharding.SlabGrid.rows reads the
+        ranks' slabs. The scene then holds no grid (gbv, gbw and gbq are
+        None) and its queries read those rows. The parameters' draws do not
+        depend on it."""
         super().__init__()
         self.config = config
         bb = np.asarray(bound_box, np.float32)
@@ -70,15 +91,20 @@ class SceneRepresentation(nn.Module):
         self.c_trunc = config["training"]["c_trunc"]
         self.trunc = config["training"]["trunc"]
         self.grid_rows = grid_rows
+        R = self.gbv_resolution
+        self.corner_offsets = [dx * R * R + dy * R + dz
+                               for dx, dy, dz in CORNERS]
         if grid_rows is None:
-            R = self.gbv_resolution
             gbv = torch.zeros((R, R, R, 4), device=device)
             gbv[..., 0] = 1.0
             self.register_buffer("gbv", gbv)
             self.register_buffer("gbw", torch.zeros((R, R, R),
                                                     device=device))
+            self.register_buffer("gbq", None)
+            self.register_buffer("corner_off", torch.tensor(
+                self.corner_offsets, device=device), persistent=False)
         else:
-            self.gbv = self.gbw = None
+            self.gbv = self.gbw = self.gbq = None
         self.to(device)
 
         if generator is None:
@@ -116,47 +142,67 @@ class SceneRepresentation(nn.Module):
 
     # ---------------------------------------------------- explicit volume
 
-    def _trilinear(self, name: str, pts: torch.Tensor):
-        """Trilinear lookup of the grid `name` (gbv, C = 4, or gbw, C = 1,
-        flattened to [R^3, C]) at normalized points [N, 3] (node i at i / R,
-        clamped to the interpolation range) -> [N, C]. The corner rows come
-        from the scene's own grid, or from grid_rows when it holds none;
-        either way they are weighted and added in one order."""
+    def refresh_gbq(self):
+        """Round the float32 grid into the bf16 query mirror, whole."""
+        if self.grid_rows is not None:
+            raise ValueError("the scene holds no grid: the slabs keep the "
+                             "mirror (parallel/sharding.SlabGrid)")
+        self.gbq = refresh_mirror(self.gbq, self.gbv)
+
+    def _corner_rows(self, name: str, base: torch.Tensor):
+        """[N, 8, C] corner rows of the grid `name` (flattened to [R^3, C])
+        at the low-corner rows base [N], in one gather: from the scene's
+        own grid, or from grid_rows when it holds none. None for a grid
+        that is not held (a mirror not yet made)."""
+        if self.grid_rows is not None:
+            return self.grid_rows(name, base, self.corner_offsets)
+        grid = getattr(self, name)
+        if grid is None:
+            return None
+        R = self.gbv_resolution
+        return grid.reshape(R ** 3, -1)[base[:, None] + self.corner_off]
+
+    def _trilinear(self, names, pts: torch.Tensor):
+        """Trilinear lookup at normalized points [N, 3] (node i at i / R,
+        clamped to the interpolation range) -> [N, C] float32, of the first
+        grid of `names` that is held: gbv (C = 4), gbw (C = 1) or the bf16
+        mirror gbq (C = 4, each corner upcast to float32, exactly JAX's
+        float32 x bf16 promotion). The corners are weighted and added in
+        one order whichever grid they come from."""
         R = self.gbv_resolution
         pos = pts * R
         low = torch.clamp(torch.floor(pos), 0, R - 2)
         frac = torch.clamp(pos - low, 0.0, 1.0)
         li = low.to(torch.int64)
-        sx, sy = R * R, R
-        base = li[:, 0] * sx + li[:, 1] * sy + li[:, 2]
-        offsets = [dx * sx + dy * sy + dz
-                   for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
-        if self.grid_rows is None:
-            flat = getattr(self, name).reshape(R ** 3, -1)
-            corner = lambda k: flat[base + offsets[k]]  # noqa: E731
-        else:
-            rows = self.grid_rows(name, base, offsets)
-            corner = lambda k: rows[:, k]  # noqa: E731
-        out = torch.zeros((pts.shape[0], GRID_WIDTH[name]),
+        base = li[:, 0] * (R * R) + li[:, 1] * R + li[:, 2]
+        for name in names:
+            rows = self._corner_rows(name, base)
+            if rows is not None:
+                break
+        rows = rows.float()
+        out = torch.zeros((pts.shape[0], rows.shape[2]),
                           dtype=torch.float32, device=pts.device)
-        k = 0
-        for dx in (0, 1):
-            for dy in (0, 1):
-                for dz in (0, 1):
-                    w = ((frac[:, 0] if dx else 1 - frac[:, 0])
-                         * (frac[:, 1] if dy else 1 - frac[:, 1])
-                         * (frac[:, 2] if dz else 1 - frac[:, 2]))
-                    out = out + w[:, None] * corner(k)
-                    k += 1
+        for k, (dx, dy, dz) in enumerate(CORNERS):
+            w = ((frac[:, 0] if dx else 1 - frac[:, 0])
+                 * (frac[:, 1] if dy else 1 - frac[:, 1])
+                 * (frac[:, 2] if dz else 1 - frac[:, 2]))
+            out = out + w[:, None] * rows[:, k]
         return out
 
     def query_gbv(self, pts: torch.Tensor) -> torch.Tensor:
-        """[N, 4] (tsdf, r, g, b) at normalized points [N, 3]."""
-        return self._trilinear("gbv", pts)
+        """[N, 4] (tsdf, r, g, b) of the float32 grid at normalized points
+        [N, 3]."""
+        return self._trilinear(("gbv",), pts)
+
+    def query_gbq(self, pts: torch.Tensor) -> torch.Tensor:
+        """[N, 4] (tsdf, r, g, b) of the hot query at normalized points
+        [N, 3]: through the bf16 mirror when it is held, else the float32
+        grid (JAX query_gbvw_fast)."""
+        return self._trilinear(("gbq", "gbv"), pts)
 
     def query_gbw(self, pts: torch.Tensor) -> torch.Tensor:
         """[N] trilinear fusion weight at normalized points [N, 3]."""
-        return self._trilinear("gbw", pts)[:, 0]
+        return self._trilinear(("gbw",), pts)[:, 0]
 
     def normalize(self, pts_world: torch.Tensor) -> torch.Tensor:
         """World -> [0, 1]^3 normalized coordinates."""
@@ -209,12 +255,13 @@ class SceneRepresentation(nn.Module):
         return self.query_gbv(pts)[..., 1:]
 
     def query_color_sdf(self, pts: torch.Tensor, clamp: bool = False):
-        """Joint query of the render path [N, 3] -> [N, 4] (rgb, sdf);
-        `clamp` is the bundle-adjustment clamping of the explicit TSDF
-        (scene_rep.py:314-349)."""
+        """Joint query of the render path [N, 3] -> [N, 4] (rgb, sdf),
+        reading the explicit grid through the bf16 mirror when it is held
+        (query_gbq); `clamp` is the bundle-adjustment clamping of the
+        explicit TSDF (scene_rep.py:314-349)."""
         embedded = self.embed_res_fn(self._table(), pts)
         embedded_pos = self.embedpos_fn(None, pts)
-        ex_trgb = self.query_gbv(pts)
+        ex_trgb = self.query_gbq(pts)
         tmp_tsdf = self._explicit_tsdf(ex_trgb)
         if clamp:
             th = self.config["mapping"]["clamp"]

@@ -4,8 +4,9 @@
     python -m remixfusion_tpu_torch.parallel.dryrun --ranks N [--device cpu]
 
 Every rank runs, in one process group: a data-parallel map step with Adam,
-the slab-sharded fusion of a frame, a grid-sharded map step reading the
-fused slabs (from a scene that holds no grid of its own), and
+the slab-sharded fusion of a frame (with the slabs' bf16 query mirror), a
+grid-sharded map step reading the fused slabs' mirror (from a scene that
+holds no grid of its own), and
 `interleaved_dataflow`: candidate-sharded tracking -> slab-sharded fusion
 -> a data-parallel map round every second frame over FRAMES frames, all on
 configs/Synthetic/verify_small.yaml (320x240). Rank 0 prints the losses, the
@@ -34,7 +35,7 @@ from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
 from remixfusion_tpu_torch.parallel.launch import collectives, spawn
 from remixfusion_tpu_torch.parallel.sharding import (
     SlabGrid, gridsharded_map_train_step, sharded_fuse_frame,
-    sharded_map_train_step)
+    sharded_fuse_pack_gbq, sharded_map_train_step)
 from remixfusion_tpu_torch.tools.eval_ate import evaluate_ate
 from remixfusion_tpu_torch.tracking.rotracker import ROTracker
 from remixfusion_tpu_torch.tracking.volume import MovingVolume
@@ -201,12 +202,13 @@ def _run_rank(rank, world, cfg, n_frames, device):
     lines.append(f"DP map step (Adam, {n} rays): loss {loss:.6f}, "
                  f"collective bytes {dict(step.comm.bytes)}")
 
-    # slab-sharded fusion of frame 1
-    fuse = sharded_fuse_frame(comm, R, cfg["training"]["c_trunc"], H, W)
+    # slab-sharded fusion of frame 1, the slabs' bf16 query mirror
+    # refreshed after it
+    fuse = sharded_fuse_pack_gbq(comm, R, cfg["training"]["c_trunc"], H, W)
     slab = SlabGrid(R, comm, dev)
     K_t = torch.as_tensor(ds.K(), dtype=torch.float32, device=dev)
     bound_t = torch.as_tensor(bound, device=dev)
-    fuse(slab.gbv, slab.gbw, torch.as_tensor(f["depth"], device=dev),
+    fuse(slab, torch.as_tensor(f["depth"], device=dev),
          torch.as_tensor(f["rgb"], device=dev), K_t,
          torch.as_tensor(np.asarray(f["c2w"], np.float32), device=dev),
          bound_t)
@@ -216,7 +218,7 @@ def _run_rank(rank, world, cfg, n_frames, device):
     lines.append(f"sharded fusion: slabs {fuse.bounds} of R={R} on rank "
                  f"{rank}, {int(fused)} voxels fused over all slabs")
 
-    # grid-sharded map step reading those slabs
+    # grid-sharded map step reading those slabs (through their mirror)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     gscene = SceneRepresentation(cfg, bound, NUM_KF, device=dev,
                                  generator=gen, grid_rows=slab.rows)

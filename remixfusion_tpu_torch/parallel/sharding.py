@@ -27,12 +27,15 @@ launch.Collectives.
     are summed over the ranks with a reduce-scatter (each rank keeps its own
     points' rows) and the scene weights them in its single-process
     trilinear order, so the result is bitwise the single-process query.
+    The hot query reads the slabs' bf16 query mirror (SlabGrid.gbq, the
+    rounding of the rank's own slab, refreshed whole after each fuse by
+    sharded_fuse_pack_gbq), as JAX's grid-sharded step reads its
+    row-sharded gbq; its rows go through the collectives as float32 (the
+    exact upcast), so the step stays bitwise the single-process step with
+    the mirror. A slab that has no mirror yet serves the float32 slab.
 
-The port keeps no bf16 `gbq` query mirror: it reads the float32 grid
-(ROADMAP Queue 3, "Known differences"), so the JAX functions that build and
-refresh that mirror have no counterpart; the structure they keep current is
-here the slab itself, which sharded_fuse_frame updates in place and
-gridsharded_map_train_step reads:
+The mirror's values are ported; JAX's oct-packed tile-major rows, their
+ppermute halo and the incremental refresher are TPU layout and are not:
 
   JAX (remixfusion_tpu/parallel/sharding.py)   port
   make_mesh                                    launch.make_group, launch.spawn
@@ -41,10 +44,9 @@ gridsharded_map_train_step reads:
   sharded_fuse_frame                           sharded_fuse_frame
   pad_rows_for_mesh                            pad_rows_for_mesh
   partition_tiles_by_device                    partition_tiles_by_device
-  sharded_pack_gbq_tm                          the slab itself
-  sharded_fuse_pack_gbq                        the slab itself (fused by
-                                               sharded_fuse_frame)
-  make_sharded_gbq_refresher                   the slab itself
+  sharded_pack_gbq_tm                          SlabGrid.refresh_gbq
+  sharded_fuse_pack_gbq                        sharded_fuse_pack_gbq
+  make_sharded_gbq_refresher                   SlabGrid.refresh_gbq (whole)
   ROTracker(mesh=...)                          ROTracker(group=...)
 
 `group` is a torch.distributed process group, or None for one process with
@@ -56,7 +58,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
+from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation, \
+    refresh_mirror
 from remixfusion_tpu_torch.ops import tsdf as tsdf_ops
 from remixfusion_tpu_torch.parallel.launch import collectives, world_rank
 
@@ -136,6 +139,23 @@ def sharded_fuse_frame(group, R: int, trunc_margin: float, H: int, W: int):
     return fuse
 
 
+def sharded_fuse_pack_gbq(group, R: int, trunc_margin: float, H: int,
+                          W: int):
+    """fuse(slab, depth, rgb, K, c2w, bound, obs_weight=1.0) -> slab:
+    sharded_fuse_frame into the SlabGrid `slab`, then its bf16 query mirror
+    refreshed from the fused slab (SlabGrid.refresh_gbq). fuse.bounds is
+    the slab's [x0, x1)."""
+    inner = sharded_fuse_frame(group, R, trunc_margin, H, W)
+
+    def fuse(slab, depth, rgb, K, c2w, bound, obs_weight=1.0):
+        inner(slab.gbv, slab.gbw, depth, rgb, K, c2w, bound, obs_weight)
+        slab.refresh_gbq()
+        return slab
+
+    fuse.bounds = inner.bounds
+    return fuse
+
+
 # ------------------------------------------------------------ the slab
 
 def slab_rows(slab_flat: torch.Tensor, x0: int, R: int, base: torch.Tensor,
@@ -157,7 +177,9 @@ def slab_rows(slab_flat: torch.Tensor, x0: int, R: int, base: torch.Tensor,
 class SlabGrid:
     """This rank's x-slab [x0, x1) (`bounds`) of the R^3 global grid: gbv
     [S, R, R, 4] (tsdf 1, colour 0) and gbw [S, R, R] (0), S = x1 - x0, on
-    `device`. sharded_fuse_frame fuses into it; a scene built with
+    `device`, and gbq, the bf16 query mirror of gbv (None until
+    refresh_gbq). sharded_fuse_frame fuses into it (sharded_fuse_pack_gbq
+    refreshes the mirror too); a scene built with
     SceneRepresentation(..., grid_rows=slab.rows) reads the grid through
     it, so no rank holds the grid whole."""
 
@@ -170,23 +192,33 @@ class SlabGrid:
         self.gbv[..., 0] = 1.0
         self.gbw = torch.zeros((x1 - x0, R, R), dtype=torch.float32,
                                device=device)
+        self.gbq = None
 
-    def rows(self, name: str, base: torch.Tensor, offsets) -> torch.Tensor:
-        """[M, 8, C]: the corner rows of the grid `name` (gbv or gbw) at this
-        rank's low-corner rows base [M] (M equal on every rank). The ranks'
-        corner rows are all-gathered, every rank reads the rows its slab
-        holds (zeros elsewhere), and the rows are summed over the ranks with
-        a reduce-scatter that leaves each rank its own points' rows: one
+    def refresh_gbq(self):
+        """Round this rank's slab into its bf16 query mirror, whole."""
+        self.gbq = refresh_mirror(self.gbq, self.gbv)
+
+    def rows(self, name: str, base: torch.Tensor, offsets):
+        """[M, 8, C]: the corner rows of the grid `name` (gbv, gbw or the
+        mirror gbq, whose bf16 rows come as float32, the exact upcast) at
+        this rank's low-corner rows base [M] (M equal on every rank); None
+        for gbq while the slab has no mirror. The ranks' corner rows are
+        all-gathered, every rank reads the rows its slab holds (zeros
+        elsewhere), and the rows are summed over the ranks with a
+        reduce-scatter that leaves each rank its own points' rows: one
         non-zero term each, so the sum is exact and the scene's trilinear
         blend of them is bitwise the single-process query. Detached: the
         grid takes no gradient."""
         x0, x1 = self.bounds
-        flat = getattr(self, name).detach().reshape((x1 - x0) * self.R ** 2,
-                                                    -1)
+        grid = getattr(self, name)
+        if grid is None:
+            return None
+        flat = grid.detach().reshape((x1 - x0) * self.R ** 2, -1)
         if self.comm is None:
-            return slab_rows(flat, x0, self.R, base, offsets)
+            return slab_rows(flat, x0, self.R, base, offsets).float()
         return self.comm.reduce_scatter_sum(slab_rows(
-            flat, x0, self.R, self.comm.all_gather_cat(base), offsets))
+            flat, x0, self.R, self.comm.all_gather_cat(base),
+            offsets).float())
 
 
 # ------------------------------------------------------------- map steps

@@ -1055,7 +1055,9 @@ class RemixFusionTorch:
     def _restore_model_state(self, data):
         """Inverse of _model_state_dict: the scene model's parameters and
         buffers from a checkpoint's arrays, copied in place (the
-        optimizers keep their parameters)."""
+        optimizers keep their parameters), and the bf16 query mirror
+        rounded from the loaded grid, as JAX's _restore_model_state packs
+        it (the files hold no mirror)."""
         template, _ = scene_to_numpy(self.scene)
         n = sum(len(_leaves(template[part])) for part in _PARAM_PARTS)
         if f"param_{n - 1}" not in data or f"param_{n}" in data:
@@ -1075,6 +1077,7 @@ class RemixFusionTorch:
                    "rba": {k: data[f"rba_{k}"]
                            for k in ("init_c2w", "init_r", "init_t")}}
         load_scene_numpy(self.scene, params, buffers)
+        self.scene.refresh_gbq()
 
     def save_ckpt(self, path):
         """Model + pose checkpoint (reference mapper.py:257-265), with the

@@ -6,8 +6,11 @@ The JAX package's state goes across as numpy arrays:
     CPGrid or Triplane dict of tables, or None for a parameter-free
     encoding —, decoder {sdf_net, color_net: {w<i>}},
     rba {w<i>, b<i>}) and SceneBuffers (gbv, gbw, rba: init_c2w, init_r,
-    init_t). JAX stores a layer's weight [in, out] (h @ w), nn.Linear
-    [out, in], so weights are transposed on the way.
+    init_t, and the bf16 query mirror gbq or None). JAX stores a layer's
+    weight [in, out] (h @ w), nn.Linear [out, in], so weights are
+    transposed on the way. The mirror does not go across as rows: the port
+    scene gets one, rounded from the converted gbv, exactly when the
+    buffers carry one.
 The PST tables are regenerated bitwise from their seeds and the config is
 shared, so neither needs converting.
 """
@@ -45,6 +48,11 @@ def _get(obj, name):
     return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
 
 
+def _get_opt(obj, name):
+    return (obj.get(name) if isinstance(obj, Mapping)
+            else getattr(obj, name, None))
+
+
 @torch.no_grad()
 def _copy(dst: torch.Tensor, src, transpose: bool = False):
     a = np.asarray(src, np.float32)
@@ -73,7 +81,10 @@ def _mlp_to(mlp):
 
 def load_scene_numpy(scene: SceneRepresentation, params, buffers):
     """Copy JAX SceneParams / SceneBuffers (numpy arrays, as NamedTuples
-    or dicts) into a port scene of the same configuration."""
+    or dicts) into a port scene of the same configuration. The scene holds
+    a bf16 query mirror, rounded from gbv, exactly when the buffers' gbq is
+    not None (JAX's oct-packed rows or scene_to_numpy's marker; only its
+    presence is read)."""
     table = _get(params, "hash_table")
     if scene.hash_table is None or table is None:
         if scene.hash_table is not None or table is not None:
@@ -91,6 +102,10 @@ def load_scene_numpy(scene: SceneRepresentation, params, buffers):
     _mlp_from(scene.rba.mlp, _get(params, "rba"))
     _copy(scene.gbv, _get(buffers, "gbv"))
     _copy(scene.gbw, _get(buffers, "gbw"))
+    if _get_opt(buffers, "gbq") is None:
+        scene.gbq = None
+    else:
+        scene.refresh_gbq()
     rb = _get(buffers, "rba")
     for name in ("init_c2w", "init_r", "init_t"):
         _copy(getattr(scene.rba, name), _get(rb, name))
@@ -107,7 +122,9 @@ def scene_from_numpy(config, bound, num_kf: int, params, buffers,
 
 def scene_to_numpy(scene: SceneRepresentation):
     """(params, buffers) as dicts of numpy arrays in the JAX layout (gbv
-    and gbw None for a scene that holds no grid)."""
+    and gbw None for a scene that holds no grid); buffers' gbq is True
+    when the scene holds a bf16 query mirror, else None: a marker, as the
+    mirror is gbv's rounding and load_scene_numpy rounds it anew."""
     if scene.hash_table is None:
         table = None
     elif isinstance(scene.hash_table, torch.nn.ParameterDict):
@@ -122,6 +139,7 @@ def scene_to_numpy(scene: SceneRepresentation):
     grid = scene.gbv is not None
     buffers = {"gbv": scene.gbv.cpu().numpy().copy() if grid else None,
                "gbw": scene.gbw.cpu().numpy().copy() if grid else None,
+               "gbq": None if scene.gbq is None else True,
                "rba": {n: getattr(scene.rba, n).cpu().numpy().copy()
                        for n in ("init_c2w", "init_r", "init_t")}}
     return params, buffers

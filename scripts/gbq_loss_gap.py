@@ -4,13 +4,16 @@
 
 The JAX hot path reads the explicit global grid through `gbq`, a bf16
 mirror laid out for the TPU (scene_rep.query_gbvw_fast); its cold paths and
-the reference read the float32 grid (query_gbv). The PyTorch port reads the
-float32 grid everywhere, and its tests hold it against the JAX package with
-gbq=None. This script measures what that choice is worth on one tiny
+the reference read the float32 grid (query_gbv). The PyTorch port reads
+the mirror's values on the same hot path (models/scene_rep.query_gbq).
+This script measures what the mirror's rounding is worth on one tiny
 mapping round (tests/helpers.tiny_config: three keyframes fused into the
 48^3 grid, one map-step batch of 128 + n_cur rays with fixed draws): the
 weighted map loss and its parts through the mirror and through the float32
-grid, and their relative gaps. CPU only; imports the JAX package alone.
+grid, and their relative gaps: what a read of the float32 grid on the hot
+path would cost against the JAX package (the port's own cases are the
+[gbq] tests, tests/test_torch_gbq.py and the lockstep tests). CPU only;
+imports the JAX package alone.
 """
 
 import os

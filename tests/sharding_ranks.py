@@ -17,7 +17,7 @@ from remixfusion_tpu_torch.parallel import dryrun
 from remixfusion_tpu_torch.parallel.launch import Collectives, make_group
 from remixfusion_tpu_torch.parallel.sharding import (
     SlabGrid, gridsharded_map_train_step, sharded_fuse_frame,
-    sharded_map_train_step)
+    sharded_fuse_pack_gbq, sharded_map_train_step)
 from remixfusion_tpu_torch.tracking.rotracker import ROTracker
 from remixfusion_tpu_torch.tracking.volume import MovingVolume
 from remixfusion_tpu_torch.utils.convert import (scene_from_numpy,
@@ -42,14 +42,15 @@ def t(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
-def _dp_step(inp, comm, rays=None):
-    """One SGD (lr 1e-2) data-parallel step from the JAX parameters on the
-    shared rays and draw; (loss, the parameters after it)."""
+def _dp_step(inp, comm, rays=None, buffers="buffers", lr=1e-2):
+    """One SGD (lr) data-parallel step from the JAX parameters on the
+    shared rays and draw, on the scene of inp[buffers] (the initial grid,
+    or the fused one with its bf16 query mirror); (loss, the parameters
+    after it)."""
     scene = scene_from_numpy(inp["cfg"], inp["bound"], NUM_KF, inp["params"],
-                             inp["buffers"])
+                             inp[buffers])
     step = sharded_map_train_step(
-        scene, torch.optim.SGD(scene.parameters(), lr=1e-2), comm,
-        inp["lw"])
+        scene, torch.optim.SGD(scene.parameters(), lr=lr), comm, inp["lw"])
     rays = inp["rays"] if rays is None else rays
     loss = step(t(rays), t(inp["rays_o"][:len(rays)]),
                 t(inp["rays_d"][:len(rays)]), u=t(inp["u"][:len(rays)]))
@@ -103,6 +104,9 @@ def run_cases(rank, world, inp):
     out["dp"] = _dp_step(inp, comm)
     out["dp_solo"] = _dp_step(inp, solo)
     out["dp_none"] = _dp_step(inp, None)
+    for key, group in (("dp_gbq", comm), ("dp_gbq_none", None)):
+        out[key] = _dp_step(inp, group, buffers="fused_buffers",
+                            lr=inp["fused_lr"])
     try:
         _dp_step(inp, comm, rays=inp["rays"][:-1])
         out["n_error"] = None
@@ -137,25 +141,43 @@ def run_cases(rank, world, inp):
     except ValueError as e:
         out["c_error"] = str(e)
 
-    # the grid-sharded step on the fused slabs, from a scene without a grid
-    ref = scene_from_numpy(cfg, inp["bound"], NUM_KF, inp["params"],
-                           inp["buffers"])
-    gscene = SceneRepresentation(cfg, inp["bound"], NUM_KF,
-                                 grid_rows=slab.rows)
-    with torch.no_grad():
-        for p, q in zip(gscene.parameters(), ref.parameters()):
-            p.copy_(q)
-    del ref
+    # the same frames fused with the slab's bf16 query mirror refreshed
+    pack = sharded_fuse_pack_gbq(comm, R, cfg["training"]["c_trunc"], ds.H,
+                                 ds.W)
+    qslab = SlabGrid(R, comm, "cpu")
+    for i in inp["fuse_frames"]:
+        f = ds[i]
+        pack(qslab, t(f["depth"]), t(f["rgb"]), t(ds.K()), t(f["c2w"]),
+             t(inp["bound"]))
+    out["fuse_gbq"] = qslab.gbq.float().numpy()
+    out["fuse_gbq_bitwise"] = (torch.equal(qslab.gbv, slab.gbv)
+                               and torch.equal(qslab.gbw, slab.gbw))
+
+    # the grid-sharded step on the fused slabs, from a scene without a
+    # grid: reading the float32 slabs, and the slabs' mirror
     pts = t(inp["query_pts"])
     m = pts.shape[0] // world
-    out["query"] = gscene.query_gbv(pts[rank * m:(rank + 1) * m]).numpy()
-    step = gridsharded_map_train_step(
-        gscene, torch.optim.SGD(gscene.parameters(), lr=1e-2), comm,
-        inp["lw"])
-    loss = step(t(inp["rays"]), t(inp["rays_o"]), t(inp["rays_d"]),
-                u=t(inp["u"]))
-    out["grid"] = (float(loss), scene_to_numpy(gscene)[0],
-                   gscene.gbv is None)
+    mine = pts[rank * m:(rank + 1) * m]
+    for key, grid, lr in (("grid", slab, 1e-2),
+                          ("grid_gbq", qslab, inp["fused_lr"])):
+        ref = scene_from_numpy(cfg, inp["bound"], NUM_KF, inp["params"],
+                               inp["buffers"])
+        gscene = SceneRepresentation(cfg, inp["bound"], NUM_KF,
+                                     grid_rows=grid.rows)
+        with torch.no_grad():
+            for p, q in zip(gscene.parameters(), ref.parameters()):
+                p.copy_(q)
+        del ref
+        out[f"query_{key}"] = (gscene.query_gbv(mine).numpy(),
+                               gscene.query_gbq(mine).numpy())
+        step = gridsharded_map_train_step(
+            gscene, torch.optim.SGD(gscene.parameters(), lr=lr), comm,
+            inp["lw"])
+        loss = step(t(inp["rays"]), t(inp["rays_o"]), t(inp["rays_d"]),
+                    u=t(inp["u"]))
+        out[key] = (float(loss), scene_to_numpy(gscene)[0],
+                    gscene.gbv is None)
+    out["query"] = out["query_grid"][0]
 
     out["dataflow"] = dryrun.interleaved_dataflow(
         comm, inp["flow_cfg"], inp["flow_frames"], map_every=2, n_rays=128,

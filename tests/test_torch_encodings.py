@@ -190,10 +190,11 @@ def test_get_encoder_rejects_unknown_names():
 _STATES = {}
 
 
-def _mapping_state(enc):
+def _mapping_state(enc, mirror=False):
     """test_torch_mapping's mapping round on a scene of encoder `enc`: a
-    JAX scene with three keyframes in its grid and two in its store, a
-    fresh port copy, and the round's inputs."""
+    JAX scene with three keyframes in its grid and two in its store, with
+    its bf16 query mirror or without (mirror), a fresh port copy, and the
+    round's inputs."""
     if enc not in _STATES:
         cfg, ds, bound, js, params, buffers, jm, _, tm = _systems(
             grid={"enc": enc})
@@ -215,13 +216,15 @@ def _mapping_state(enc):
                                     jnp.asarray(f["rgb"]),
                                     jnp.asarray(dirs),
                                     jax.random.PRNGKey(slot))
-        buffers = buffers._replace(gbq=None, gbv_tm=None, gbw_tm=None)
+        buffers = buffers._replace(gbv_tm=None, gbw_tm=None)
         _STATES[enc] = dict(
             cfg=cfg, bound=bound, js=js, params=params, buffers=buffers,
             jm=jm, jstore=jstore, dirs=dirs, poses=poses,
             dep=ds[4]["depth"], rgb=ds[4]["rgb"],
             n_cur=tm.current_ray_budget(2))
     s = dict(_STATES[enc])
+    if not mirror:
+        s["buffers"] = s["buffers"]._replace(gbq=None)
     ts = SceneRepresentation(s["cfg"], s["bound"], NUM_KF)
     load_scene_numpy(ts, jax.tree_util.tree_map(np.asarray, s["params"]),
                      jax.tree_util.tree_map(np.asarray, s["buffers"]))
@@ -234,13 +237,17 @@ def _mapping_state(enc):
     return s
 
 
+@pytest.mark.parametrize("mirror", [False, True], ids=["f32", "gbq"])
 @pytest.mark.parametrize("enc", ["Triplane", "Frequency"])
-def test_map_step_matches_jax(enc):
+def test_map_step_matches_jax(enc, mirror):
     """One map step of a Triplane scene and of a Frequency scene (no field
     table: the map optimizer's field group is empty) against JAX: the
     gradients of the same objective at the same draws, then the step's
-    loss against JAX's own step from the same key."""
-    s = _mapping_state(enc)
+    loss against JAX's own step from the same key; with the bf16 query
+    mirror on both sides (JAX's default buffers) and without."""
+    s = _mapping_state(enc, mirror)
+    assert (s["ts"].gbq is None) == (s["buffers"].gbq is None) == (
+        not mirror)
     cfg, js, jm, ts, tm = s["cfg"], s["js"], s["jm"], s["ts"], s["tm"]
     params, buffers = s["params"], s["buffers"]
     assert (params.hash_table is None) == (enc == "Frequency")

@@ -14,9 +14,10 @@ tests/helpers.tiny_config sizes.
   - a whole tiny run of both pipelines (HashGrid, 15 frames, 2 mapping
     rounds): the full ATE (after BA) within a band.
 
-The JAX buffers carry no bf16 query mirror here (gbq=None): both packages
-read the float32 grid. The port reads it on its hot path too, by design
-(ROADMAP queue 3)."""
+The map-step and BA-step lockstep cases run twice: with JAX's default
+buffers, whose hot query reads the bf16 query mirror (gbq), against a port
+scene converted from them (which then holds its own mirror), and with the
+mirror absent on both sides (gbq=None), where both read the float32 grid."""
 
 import copy
 
@@ -181,13 +182,16 @@ def test_keyframe_store_matches_jax(filtered, trunc):
 _STATE = {}
 
 
-def _mapping_state():
+def _mapping_state(mirror=False):
     """A JAX scene with three keyframes in its grid and two in its store
     (built once per module; the JAX steps get copies, as they donate their
-    inputs), a fresh port copy, and the round's inputs."""
+    inputs), with its bf16 query mirror or without (mirror), a fresh port
+    copy, and the round's inputs."""
     if not _STATE:
         _STATE.update(_build_mapping_state())
     s = dict(_STATE)
+    if not mirror:
+        s["buffers"] = s["buffers"]._replace(gbq=None)
     ts = SceneRepresentation(s["cfg"], s["bound"], NUM_KF)
     load_scene_numpy(ts, _np_tree(s["params"]), _np_tree(s["buffers"]))
     tstore = DeviceKeyFrameStore(NUM_KF, s["jstore"].R,
@@ -218,7 +222,7 @@ def _build_mapping_state():
             jstore.add_keyframe(fid, jnp.asarray(f["depth"]),
                                 jnp.asarray(f["rgb"]), jnp.asarray(dirs),
                                 jax.random.PRNGKey(slot))
-    buffers = buffers._replace(gbq=None, gbv_tm=None, gbw_tm=None)
+    buffers = buffers._replace(gbv_tm=None, gbw_tm=None)
     cur = ds[4]
     return dict(cfg=cfg, ds=ds, bound=bound, js=js, params=params,
                 buffers=buffers, jm=jm, jstore=jstore, dirs=dirs,
@@ -252,8 +256,11 @@ def _close_scaled(ref, got, frac):
         np.abs(ref - got).max(), scale)
 
 
-def test_map_step_lockstep_matches_jax():
-    s = _mapping_state()
+@pytest.mark.parametrize("mirror", [False, True], ids=["f32", "gbq"])
+def test_map_step_lockstep_matches_jax(mirror):
+    s = _mapping_state(mirror)
+    assert (s["ts"].gbq is None) == (s["buffers"].gbq is None) == (
+        not mirror)
     cfg, js, jm, ts, tm = s["cfg"], s["js"], s["jm"], s["ts"], s["tm"]
     params, buffers = s["params"], s["buffers"]
     key = jax.random.PRNGKey(21)
@@ -308,8 +315,11 @@ def _rays_world(rays, ids, kf_poses, ts):
     return rays_world(rays[:, :3], poses[ids])
 
 
-def test_ba_step_lockstep_matches_jax():
-    s = _mapping_state()
+@pytest.mark.parametrize("mirror", [False, True], ids=["f32", "gbq"])
+def test_ba_step_lockstep_matches_jax(mirror):
+    s = _mapping_state(mirror)
+    assert (s["ts"].gbq is None) == (s["buffers"].gbq is None) == (
+        not mirror)
     cfg, js, jm, ts, tm = s["cfg"], s["js"], s["jm"], s["ts"], s["tm"]
     params, buffers = s["params"], s["buffers"]
     key = jax.random.PRNGKey(31)

@@ -6,7 +6,9 @@ The JAX model's parameters and buffers go across as numpy
 (utils/convert.scene_from_numpy). jax.random draws cannot be replayed in
 torch, so the JAX side's uniform draws are computed from its keys here and
 handed to the port's draw arguments. The JAX buffers carry no bf16 query
-mirror (gbq=None): both packages then read the float32 grid.
+mirror (gbq=None): both packages then read the float32 grid; the render
+and loss case also runs with JAX's default buffers, mirror included, and a
+port scene converted from them (holding its own mirror).
 
 Tolerances: forwards within 1e-5 (float32, different summation orders in
 the small matmuls); losses at rtol 1e-4; gradients within 1e-3 of the
@@ -40,12 +42,15 @@ def _np_tree(tree):
 _BUILT = {}
 
 
-def build(enc="HashGrid", n_frames=3):
+def build(enc="HashGrid", n_frames=3, mirror=False):
     """A JAX scene with a few keyframes fused into its grid (built once per
-    module), and a fresh port copy of it."""
+    module), with its bf16 query mirror or without (mirror), and a fresh
+    port copy of it."""
     if (enc, n_frames) not in _BUILT:
         _BUILT[enc, n_frames] = _build_jax(enc, n_frames)
     cfg, ds, js, params, buffers = _BUILT[enc, n_frames]
+    if not mirror:
+        buffers = buffers._replace(gbq=None)
     ts = scene_from_numpy(cfg, np.asarray(cfg["mapping"]["bound"]), NUM_KF,
                           _np_tree(params), _np_tree(buffers))
     return cfg, ds, js, params, buffers, ts
@@ -67,7 +72,7 @@ def _build_jax(enc, n_frames):
     for k in range(3):
         buffers = buffers._replace(rba=js.rba.update_init_pose(
             buffers.rba, k, jnp.asarray(ds[2 * k]["c2w"])))
-    buffers = buffers._replace(gbq=None, gbv_tm=None, gbw_tm=None)
+    buffers = buffers._replace(gbv_tm=None, gbw_tm=None)
     return cfg, ds, js, params, buffers
 
 
@@ -204,9 +209,11 @@ def test_scene_queries_match_jax():
                 atol=1e-5)
 
 
+@pytest.mark.parametrize("mirror", [False, True], ids=["f32", "gbq"])
 @pytest.mark.parametrize("clamp", [False, True])
-def test_render_and_losses_match_jax(clamp):
-    cfg, ds, js, params, buffers, ts = build()
+def test_render_and_losses_match_jax(clamp, mirror):
+    cfg, ds, js, params, buffers, ts = build(mirror=mirror)
+    assert (ts.gbq is None) == (buffers.gbq is None) == (not mirror)
     rays, ro, rd = frame_rays(ds, 2, 96, 4)
     key = jax.random.PRNGKey(5)
     S = cfg["training"]["n_range_d"] + cfg["training"]["n_samples_d"]

@@ -9,16 +9,18 @@ package on the CPU (tests/helpers.tiny_config sizes):
     converter's shapes on 96x128 images (1e-4 relative), and an npz
     round trip through weights_available() / perceptual_distance;
   - render_frame against the JAX render_frame on a tiny scene (the JAX
-    weights carried across with load_scene_numpy, the JAX buffers without
-    the bf16 query mirror, training.perturb 0 so that no draw enters) at
-    gap 1 and 4 with a 45x62 camera's rays (ceil shapes), with and
-    without a target depth: rgb and depth within 1e-4;
+    weights carried across with load_scene_numpy, training.perturb 0 so
+    that no draw enters) at gap 1 and 4 with a 45x62 camera's rays (ceil
+    shapes), with and without a target depth, with the JAX pipeline's own
+    buffers (the bf16 query mirror, which the port scene then holds too)
+    and with the mirror absent on both sides: rgb and depth within 1e-4;
   - render_img's six panels against the arrays computed from the JAX
     render, its PNG read back bit for bit;
   - calc_2d_metric of both packages from one JAX checkpoint.npz;
-  - update_GBV against the JAX update_GBV;
+  - update_GBV against the JAX update_GBV, the port's mirror refreshed;
   - the plasma table against matplotlib's."""
 
+import contextlib
 import copy
 import importlib.util
 import os
@@ -151,16 +153,18 @@ def _np_tree(tree):
 
 
 def _scenes(tmp_path_factory):
-    """A JAX pipeline after first-frame mapping (buffers without the bf16
-    query mirror), a port pipeline holding the same scene, and frame 3 of
-    the odd camera; built once per module."""
+    """A JAX pipeline after first-frame mapping (its own buffers, the bf16
+    query mirror included), a port pipeline holding the same scene (and so
+    its own mirror), and frame 3 of the odd camera; built once per
+    module."""
     if not _STATE:
         from remixfusion_tpu_torch.datasets import get_dataset
 
         tmp = tmp_path_factory.mktemp("render")
         j = RemixFusionTPU(_cfg(tmp / "jax"))
         j.first_frame_mapping()
-        j.buffers = j.buffers._replace(gbq=None, gbv_tm=None, gbw_tm=None)
+        j.buffers = j.buffers._replace(gbv_tm=None, gbw_tm=None)
+        assert j.buffers.gbq is not None
         p = RemixFusionTorch(_cfg(tmp / "port"), device="cpu")
         load_scene_numpy(p.scene, _np_tree(j.params), _np_tree(j.buffers))
         odd = get_dataset(_cfg(tmp / "odd", cam=ODD_CAM))[3]
@@ -168,22 +172,40 @@ def _scenes(tmp_path_factory):
     return _STATE
 
 
+@contextlib.contextmanager
+def _without_mirror(j, p):
+    """Both pipelines' scenes without the bf16 query mirror inside the
+    block (their hot queries read the float32 grid), restored after."""
+    kept = j.buffers
+    j.buffers = kept._replace(gbq=None)
+    p.scene.gbq = None
+    try:
+        yield
+    finally:
+        j.buffers = kept
+        p.scene.refresh_gbq()
+
+
+@pytest.mark.parametrize("mirror", [False, True], ids=["f32", "gbq"])
 @pytest.mark.parametrize("gap", [1, 4])
 @pytest.mark.parametrize("guided", [False, True])
-def test_render_frame_matches_jax(tmp_path_factory, gap, guided):
+def test_render_frame_matches_jax(tmp_path_factory, gap, guided, mirror):
     s = _scenes(tmp_path_factory)
     j, p, b = s["j"], s["p"], s["odd"]
     td = b["depth"] if guided else None
-    rgb_j, dep_j = j.render_frame(b["c2w"], b["direction"], gap=gap,
+    with (contextlib.nullcontext() if mirror else _without_mirror(j, p)):
+        assert (p.scene.gbq is None) == (j.buffers.gbq is None) == (
+            not mirror)
+        rgb_j, dep_j = j.render_frame(b["c2w"], b["direction"], gap=gap,
+                                      target_depth=td)
+        rgb, dep = p.render_frame(b["c2w"], b["direction"], gap=gap,
                                   target_depth=td)
-    rgb, dep = p.render_frame(b["c2w"], b["direction"], gap=gap,
-                              target_depth=td)
     shape = (-(-45 // gap), -(-62 // gap))
     assert dep.shape == dep_j.shape == shape
     assert rgb.shape == rgb_j.shape == shape + (3,)
     assert np.abs(dep_j).max() > 1.0
-    assert np.abs(rgb - rgb_j).max() <= 1e-4
-    assert np.abs(dep - dep_j).max() <= 1e-4
+    assert np.abs(rgb - rgb_j).max() <= 1e-4, np.abs(rgb - rgb_j).max()
+    assert np.abs(dep - dep_j).max() <= 1e-4, np.abs(dep - dep_j).max()
 
 
 def test_render_frame_chunks_and_pads(tmp_path_factory, monkeypatch):
@@ -291,10 +313,14 @@ def test_update_gbv_matches_jax(tmp_path_factory):
         d = np.abs(p.scene.gbv.numpy() - gbv)
         assert d[..., 0].max() <= 1e-5
         assert (d[..., 1:].max(-1) > 1e-6).sum() <= 1e-5 * updated
+        # the re-fused grid's bf16 query mirror, as JAX repacks its own
+        assert j.buffers.gbq is not None
+        assert torch.equal(p.scene.gbq, p.scene.gbv.to(torch.bfloat16))
     finally:
         j.buffers = kept_j
         p.scene.gbv.copy_(kept_p[0])
         p.scene.gbw.copy_(kept_p[1])
+        p.scene.refresh_gbq()
 
 
 def test_plasma_table_is_matplotlibs():

@@ -24,10 +24,20 @@ tests/test_sharding.py:
     the same guards; with RO.sample_range != 0 and the ray-shift generator
     seeded otherwise on every rank, every rank's pose bitwise the one the
     single process gets from rank 0's seed;
+  - the same data-parallel step on the fused grid with its bf16 query
+    mirror (gbq), against JAX's sharded step on those buffers (the mirror
+    packed from the grid) and the port's single process, at the same
+    tolerances, with SGD at lr FUSED_LR: on this grid the hash table's
+    gradient is ~1e-7, and at lr 1e-2 its update would sit at the float32
+    spacing of its entries (~7e-12), where the update check would read the
+    rounding of the parameters rather than the step;
   - the grid-sharded step: the slab query bitwise the single-process query,
-    the update against the JAX single-device step with gbq=None at the
-    lockstep tests' tolerance (1e-3 of the largest entry), the loss at rtol
-    1e-4;
+    the update against the JAX single-device step at the lockstep tests'
+    tolerance (1e-3 of the largest entry), the loss at rtol 1e-4; once on
+    the float32 slabs against JAX with gbq=None, once on the slabs' bf16
+    mirror (sharded_fuse_pack_gbq: the concatenated mirrors bitwise the
+    single-process rounding, the mirror query bitwise the single-process
+    one) against JAX with its mirror, at lr FUSED_LR as above;
   - the interleaved track -> sharded fuse -> DP map dataflow against the
     port's single-process dataflow, with test_sharding.py's
     test_interleaved_track_map_dataflow_sharded tolerances;
@@ -47,6 +57,7 @@ import torch
 
 import sharding_ranks
 from helpers import tiny_config
+from remixfusion_tpu.mapping.mapper import _pack_gbq
 from remixfusion_tpu.ops import tsdf as jtsdf
 from remixfusion_tpu.parallel import sharding as jsh
 from remixfusion_tpu.tracking.rotracker import ROTracker as JaxTracker
@@ -64,6 +75,7 @@ WORLD_TIMEOUT_S = 240
 FUSE_FRAMES = (1, 2, 3)
 FLOW_FRAMES = 7
 PST = [256, 128, 128]
+FUSED_LR = 1.0
 
 
 def t(a):
@@ -128,6 +140,14 @@ def _inputs():
         flow_cfg=tiny_config(), flow_frames=FLOW_FRAMES,
         jax_mv=mv, jax_scene=scene, jax_params=params, jax_buffers=buffers,
         ds=ds)
+    # the JAX single-device grid after FUSE_FRAMES, with the values of its
+    # bf16 query mirror (the port scene packs its own from gbv)
+    jv, jw = _jax_fused(_INPUTS)
+    _INPUTS["jax_fused"] = (jv, jw)
+    _INPUTS["fused_buffers"] = dict(
+        _INPUTS["buffers"], gbv=jv, gbw=jw,
+        gbq=np.asarray(jnp.asarray(jv).astype(jnp.bfloat16), np.float32))
+    _INPUTS["fused_lr"] = FUSED_LR
     return _INPUTS
 
 
@@ -173,7 +193,8 @@ def _close_updates(got, want, start, rel):
     for a, b, p in zip(got, want, start):
         upd, ref = a - p, b - p
         scale = max(np.abs(ref).max(), 1e-30)
-        assert np.abs(upd - ref).max() <= rel * scale
+        assert np.abs(upd - ref).max() <= rel * scale, (
+            np.abs(upd - ref).max() / scale, rel)
 
 
 def _jax_weighted(ret, lw):
@@ -187,17 +208,28 @@ def test_ranks_import_no_jax(world):
     assert all(r["jax_modules"] == [] for r in res)
 
 
-def test_dp_step_matches_jax_and_single_process(world):
+def _jax_buffers(inp, mirror):
+    """The JAX buffers of the initial grid (mirror False), or of the fused
+    grid with its bf16 query mirror."""
+    if not mirror:
+        return inp["jax_buffers"]
+    jv, jw = (jnp.asarray(a) for a in inp["jax_fused"])
+    return inp["jax_buffers"]._replace(gbv=jv, gbw=jw, gbq=_pack_gbq(jv))
+
+
+@pytest.mark.parametrize("mirror", [False, True], ids=["f32", "gbq"])
+def test_dp_step_matches_jax_and_single_process(world, mirror):
     D, inp, res = world
-    tx = optax.sgd(1e-2)
+    key = "dp_gbq" if mirror else "dp"
+    tx = optax.sgd(FUSED_LR if mirror else 1e-2)
     params = inp["jax_params"]
     step = jsh.sharded_map_train_step(inp["jax_scene"], tx, jsh.make_mesh(D),
                                       inp["lw"])
     pj, _, lj = step(jax.tree_util.tree_map(lambda x: x.copy(), params),
-                     inp["jax_buffers"], tx.init(params),
+                     _jax_buffers(inp, mirror), tx.init(params),
                      jnp.asarray(inp["rays"]), jnp.asarray(inp["rays_o"]),
                      jnp.asarray(inp["rays_d"]), jax.random.PRNGKey(7))
-    loss, got = res[0]["dp"]
+    loss, got = res[0][key]
     np.testing.assert_allclose(loss, float(lj), rtol=1e-4)
     pairs = _leaves(got, pj)
     for a, b in pairs:
@@ -206,11 +238,11 @@ def test_dp_step_matches_jax_and_single_process(world):
                    [p for p, _ in _leaves(inp["params"], params)], 1e-3)
     # lockstep: every rank holds the same parameters and loss
     for r in res[1:]:
-        assert r["dp"][0] == loss
+        assert r[key][0] == loss
         assert all(np.array_equal(a, b) for a, b in
-                   zip(_flat(r["dp"][1]), _flat(got)))
+                   zip(_flat(r[key][1]), _flat(got)))
     # the port's single-process step
-    loss1, single = res[0]["dp_none"]
+    loss1, single = res[0][f"{key}_none"]
     np.testing.assert_allclose(loss, loss1, rtol=1e-6)
     for a, b in zip(_flat(got), _flat(single)):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
@@ -326,20 +358,37 @@ def test_candidate_sharded_tracking_matches_jax(world, mode):
     np.testing.assert_allclose(pose, _jax_track(inp, mode, D), atol=1e-5)
 
 
-def test_gridsharded_step_matches_jax(world):
+@pytest.mark.parametrize("mirror", [False, True], ids=["f32", "gbq"])
+def test_gridsharded_step_matches_jax(world, mirror):
     D, inp, res = world
+    key = "grid_gbq" if mirror else "grid"
     cfg, ds = inp["cfg"], inp["ds"]
     pv, _ = _port_fused(inp)
     ref = SceneRepresentation(cfg, BOUND, 8)
     with torch.no_grad():
         ref.gbv.copy_(pv)
+    pts = t(inp["query_pts"])
     query = np.concatenate([r["query"] for r in res])
-    assert np.array_equal(query, ref.query_gbv(t(inp["query_pts"])).numpy())
+    assert np.array_equal(query, ref.query_gbv(pts).numpy())
+    f32, hot = (np.concatenate([r[f"query_{key}"][i] for r in res])
+                for i in (0, 1))
+    assert np.array_equal(f32, query)
+    if mirror:
+        assert all(r["fuse_gbq_bitwise"] for r in res)
+        gbq = np.concatenate([r["fuse_gbq"] for r in res])
+        assert np.array_equal(
+            gbq, pv.to(torch.bfloat16).float().numpy())
+        ref.refresh_gbq()
+        assert np.array_equal(hot, ref.query_gbq(pts).numpy())
+        assert not np.array_equal(hot, query)
+    else:
+        assert np.array_equal(hot, query)
 
-    # JAX single device, gbq=None, on its own fused grid
-    jv, jw = _jax_fused(inp)
-    buffers = inp["jax_buffers"]._replace(gbv=jnp.asarray(jv),
-                                          gbw=jnp.asarray(jw), gbq=None)
+    # JAX single device on its own fused grid, with its mirror or without
+    jv, jw = inp["jax_fused"]
+    buffers = inp["jax_buffers"]._replace(
+        gbv=jnp.asarray(jv), gbw=jnp.asarray(jw),
+        gbq=_pack_gbq(jnp.asarray(jv)) if mirror else None)
     params, lw, js = inp["jax_params"], inp["lw"], inp["jax_scene"]
 
     def loss_fn(p):
@@ -350,8 +399,9 @@ def test_gridsharded_step_matches_jax(world):
         return _jax_weighted(ret, lw)
 
     lj, gj = jax.jit(jax.value_and_grad(loss_fn))(params)
-    pj = jax.tree_util.tree_map(lambda p, g: p - 1e-2 * g, params, gj)
-    loss, got, holds_no_grid = res[0]["grid"]
+    lr = FUSED_LR if mirror else 1e-2
+    pj = jax.tree_util.tree_map(lambda p, g: p - lr * g, params, gj)
+    loss, got, holds_no_grid = res[0][key]
     assert holds_no_grid
     np.testing.assert_allclose(loss, float(lj), rtol=1e-4)
     pairs = _leaves(got, pj)
@@ -359,7 +409,7 @@ def test_gridsharded_step_matches_jax(world):
                    [p for p, _ in _leaves(inp["params"], params)], 1e-3)
     for r in res[1:]:
         assert all(np.array_equal(a, b) for a, b in
-                   zip(_flat(r["grid"][1]), _flat(got)))
+                   zip(_flat(r[key][1]), _flat(got)))
 
 
 def test_tracker_ray_shift_in_lockstep(world):
