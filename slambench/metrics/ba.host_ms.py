@@ -1,0 +1,9 @@
+"""Host ms a mapping round in the program's map.ba span over the traced
+sub-window's rounds."""
+
+
+def read(s):
+    t = s["span_s"].get("map.ba")
+    if t is None or not s["rounds"]:
+        return None
+    return 1e3 * t / s["rounds"]
