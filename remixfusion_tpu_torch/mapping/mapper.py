@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from remixfusion_tpu_torch.ops import tsdf as tsdf_ops
+from remixfusion_tpu_torch.utils.spans import span
 
 
 @contextlib.contextmanager
@@ -216,11 +217,15 @@ class Mapper:
         return self._weighted_loss(ret, True, draw.get("smooth_u"),
                                    generator)
 
-    @staticmethod
-    def _step(opt, loss):
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+    def _step(self, opt, loss):
+        """One optimizer step on `loss`, inside the round's map.ba.* spans
+        for the RBA optimizer and map.map.* for the map optimizer."""
+        pre = "map.ba" if opt is self.rba_opt else "map.map"
+        with span(pre + ".backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        with span(pre + ".adam"):
+            opt.step()
         return loss.detach()
 
     # ----------------------------------------------------------- map step
@@ -231,8 +236,9 @@ class Mapper:
         losses [I] (device tensor)."""
         losses = []
         for i in range(ray_batches.shape[0]):
-            loss = self.map_loss(ray_batches[i], rays_o_b[i], rays_d_b[i],
-                                 generator=generator)
+            with span("map.map.forward"):
+                loss = self.map_loss(ray_batches[i], rays_o_b[i],
+                                     rays_d_b[i], generator=generator)
             losses.append(self._step(self.map_opt, loss))
         return torch.stack(losses)
 
@@ -276,12 +282,14 @@ class Mapper:
         losses = []
         for i in range(n_iters):
             draw = None if draws is None else draws[i]
-            rays, ids = self.sample_batch(
-                kf_store, n_kf, dirs_flat, rgb_flat, depth_flat, cur_kf_id,
-                n_cur, draw, generator)
-            rays_o, rays_d = rays_world(rays[:, :3],
-                                        poses_all.index_select(0, ids))
-            loss = self.map_loss(rays, rays_o, rays_d, draw, generator)
+            with span("map.map.sample"):
+                rays, ids = self.sample_batch(
+                    kf_store, n_kf, dirs_flat, rgb_flat, depth_flat,
+                    cur_kf_id, n_cur, draw, generator)
+                rays_o, rays_d = rays_world(rays[:, :3],
+                                            poses_all.index_select(0, ids))
+            with span("map.map.forward"):
+                loss = self.map_loss(rays, rays_o, rays_d, draw, generator)
             losses.append(self._step(self.map_opt, loss))
         return torch.stack(losses)
 
@@ -310,10 +318,12 @@ class Mapper:
         with frozen(scene.field_parameters() + scene.decoder_parameters()):
             for i in range(n_iters):
                 draw = None if draws is None else draws[i]
-                rays, ids = self.sample_batch(
-                    kf_store, n_kf, dirs_flat, rgb_flat, depth_flat,
-                    cur_kf_id, n_cur, draw, generator)
-                loss = self.ba_loss(rays, ids, draw, generator)
+                with span("map.ba.sample"):
+                    rays, ids = self.sample_batch(
+                        kf_store, n_kf, dirs_flat, rgb_flat, depth_flat,
+                        cur_kf_id, n_cur, draw, generator)
+                with span("map.ba.forward"):
+                    loss = self.ba_loss(rays, ids, draw, generator)
                 losses.append(self._step(self.rba_opt, loss))
         with torch.no_grad():
             poses_all = scene.rba(torch.arange(scene.num_kf,

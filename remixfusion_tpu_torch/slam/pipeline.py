@@ -67,7 +67,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from remixfusion_tpu_torch import host_to_device, resolve_device
 from remixfusion_tpu_torch.core.pose import const_speed_np, \
@@ -89,6 +88,7 @@ from remixfusion_tpu_torch.utils.convert import load_scene_numpy, \
 from remixfusion_tpu_torch.utils.imageio import write_png
 from remixfusion_tpu_torch.utils.mesh import extract_mesh
 from remixfusion_tpu_torch.utils.meshio import write_ply_mesh
+from remixfusion_tpu_torch.utils.spans import span
 
 DEPTH_SCALE = 1000.0  # sensor-native depth quantization (mm)
 MAX_DEPTH = 65.535    # u16 ceiling in meters
@@ -437,28 +437,29 @@ class RemixFusionTorch:
         pose is harvested harvest_depth frames later (or by _harvest).
         The call's host time goes to self.track_ms."""
         t0 = time.perf_counter()
-        # record_function spans name the stages in a torch.profiler trace
-        # (tools/profile_slice.py); they cost ~1 us when no
-        # profiler runs
-        with record_function("slice.harvest"):
+        # spans name the stages in a torch.profiler trace
+        # (tools/profile_slice.py, slambench)
+        with span("slice.harvest"):
             self._harvest(keep=self._harvest_depth - 1)
         mv = self.mv
-        with record_function("slice.select"):
+        with span("slice.select"):
             init = self._host_pose_estimate(frame_id)
-            mv.check_move(frame_id, init)
-            if mv.brick:
-                ids = self._select_bricks(frame_id, batch, init)
-            else:
-                ids = mv.frame_tiles(init, np.asarray(batch["depth"]),
-                                     self.K)
-        with record_function("slice.upload"):
+            with span("slice.select.recentre"):
+                mv.check_move(frame_id, init)
+            with span("slice.select.bricks"):
+                if mv.brick:
+                    ids = self._select_bricks(frame_id, batch, init)
+                else:
+                    ids = mv.frame_tiles(init, np.asarray(batch["depth"]),
+                                         self.K)
+        with span("slice.upload"):
             fc = self._needs_color(frame_id)
             depth_t, rgb255 = self._device_frame(batch, fc)
-        with record_function("slice.track"):
+        with span("slice.track"):
             res = self.tracker.track(mv.state.tsdf, mv.state.origin,
                                      self._predict_init(), depth_t,
                                      generator=self._shift_gen)
-        with record_function("slice.fuse"):
+        with span("slice.fuse"):
             mv.fuse(ids, depth_t, rgb255, self.K_dev, res.c2w,
                     self._obs_weight(res))
         self._dev_pose_prev2 = self._dev_pose_prev
@@ -475,7 +476,7 @@ class RemixFusionTorch:
                     or not np.array_equal(sc[1], mv.vol_bnds[:, 0]))
         if (mv.brick and need_sel and nxt < self.dataset.num_frames
                 and len(self._last_harvested) >= 2):
-            with record_function("slice.lookahead"):
+            with span("slice.lookahead"):
                 pred = self._host_pose_estimate(nxt)
                 origin = mv.vol_bnds[:, 0].copy()
                 phase = mv._fs_phase
@@ -631,7 +632,7 @@ class RemixFusionTorch:
         self._apply_pending_ba()
         batch = self._get_frame(cur_frame_id)
         is_kf = cur_frame_id % self._kf_every == 0
-        with record_function("map.integrate"):
+        with span("map.integrate"):
             if is_kf:
                 cur_kf_id = cur_frame_id // self._kf_every
                 c2w = self.est_c2w_data[cur_frame_id].copy()
@@ -642,12 +643,12 @@ class RemixFusionTorch:
                     dep, rgb, self.K_dev, c2w_dev, self.bound_dev,
                     host_depth=np.asarray(batch["depth"]), host_c2w=c2w,
                     K_np=self.K, kf_index=cur_kf_id)
-        with record_function("map.map"):
+        with span("map.map"):
             self.global_mapping(batch, cur_frame_id)
-        with record_function("map.ba"):
+        with span("map.ba"):
             self.global_pose(batch, cur_frame_id)
         self.mapping_idx = cur_frame_id
-        with record_function("map.kfadd"):
+        with span("map.kfadd"):
             if is_kf:
                 dep, rgb = self._map_frame(cur_frame_id, batch)
                 self.kfdb.add_keyframe(
@@ -952,7 +953,7 @@ class RemixFusionTorch:
         kept). Returns (path of mesh_cull_occlusion.ply, kept faces)."""
         c2w_list = [poses_np[i] for i in range(0, len(poses_np), skip)]
         save_path = os.path.join(self.out_dir, "mesh_cull_occlusion.ply")
-        with record_function("mesh.cull"):
+        with span("mesh.cull"):
             _, kept = cull_one_mesh(self.config, c2w_list, mesh_path,
                                     save_path, skip, self.dataset,
                                     depth_flag=True, remove_occlusion=True,
@@ -988,7 +989,7 @@ class RemixFusionTorch:
             td[:n, 0] = np.asarray(target_depth)[::gap, ::gap].reshape(-1)
         o, d, td = (host_to_device(a, self.device) for a in (o, d, td))
         rgbs, depths = [], []
-        with torch.no_grad(), record_function("render.frame"):
+        with torch.no_grad():
             for i in range(0, n_pad, chunk):
                 out = self.scene.render_rays(o[i:i + chunk], d[i:i + chunk],
                                              td[i:i + chunk],

@@ -10,10 +10,13 @@ and the mapping rounds that fall due) over the first --frames frames and
 traces the last --profile of them with torch.profiler. Prints and writes
 (<out>/profile_slice.json) the wall time per frame, the host time of each
 pipeline stage per frame (the slice.* spans of track_frame: harvest,
-select, upload, track, fuse, lookahead) and per mapping round (the map.*
-spans of mapping_round: integrate, map, ba, kfadd), the device's busy and
-idle share of the traced window, kernel launches per frame and the kernels
-that take the most device time. Then it traces the end of the run
+select, upload, track, fuse, lookahead, and those inside them, such as
+slice.track.readback) and per mapping round (the map.* spans of
+mapping_round: integrate, map, ba, kfadd, and the map and BA steps'
+sample, forward, backward and adam), the device's busy and idle share of
+the traced window (busy: the union of its operations' intervals, so
+streams that overlap count once), kernel launches per frame and the
+kernels that take the most device time. Then it traces the end of the run
 (RemixFusionTorch.finalize) and prints the host time of its mesh.* spans
 (query: the grid and vertex queries on the card; marching: host marching
 tetrahedra; write: normals + PLY; cull: occlusion culling) and the
@@ -35,10 +38,53 @@ def dev_time(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+# the port's spans and torch's ops, which the profiler also names on the
+# card's timeline
+NOT_OPS = ("slice.", "map.", "mesh.", "aten::")
+
+
 def on_card(e):
     """Kernels and copies, not host ops or span ranges."""
     return ("CUDA" in str(e.device_type) and not e.key.startswith(
-        ("slice.", "map.", "mesh.", "aten::")))
+        NOT_OPS))
+
+
+def union_ns(intervals) -> int:
+    """Length of the union of [(start, end)] intervals: time on the card
+    in which two streams overlap counts once."""
+    total, hi = 0, None
+    for s, e in sorted(intervals):
+        if hi is None or s > hi:
+            total += e - s
+            hi = e
+        elif e > hi:
+            total += e - hi
+            hi = e
+    return total
+
+
+def _annotation(e) -> bool:
+    """A named range on the card's timeline (a record_function's, such as
+    an optimizer step's), not an operation; torch 2.11's events have no
+    activity_type."""
+    f = getattr(e, "is_user_annotation", None)
+    if f is not None and f():
+        return True
+    f = getattr(e, "activity_type", None)
+    return f is not None and "annotation" in str(f()).lower()
+
+
+def busy_us(prof) -> float:
+    """The card's busy time (us) in a finished profile: the union of the
+    intervals of its kernels, copies and sets, from the raw events."""
+    iv = []
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(e.device_type()) or _annotation(e) \
+                or e.name().startswith(NOT_OPS):
+            continue
+        s = int(e.start_ns())
+        iv.append((s, s + int(e.duration_ns())))
+    return union_ns(iv) / 1e3
 
 
 def window_summary(prof, frames: int, rounds: int, wall_us: float) -> dict:
@@ -59,14 +105,14 @@ def window_summary(prof, frames: int, rounds: int, wall_us: float) -> dict:
                        e.count / frames)
                       for e in avgs if on_card(e) and dev_time(e) > 0),
                      key=lambda k: -k[1])
-    busy_us = sum(dev_time(e) for e in avgs if on_card(e))
+    busy = busy_us(prof)
     launches = sum(e.count for e in avgs
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC")) / frames
     return {
         "wall_ms_per_frame": wall_us / frames / 1e3,
-        "device_busy_ms_per_frame": busy_us / frames / 1e3,
-        "device_idle_share": 1.0 - busy_us / wall_us,
+        "device_busy_ms_per_frame": busy / frames / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us,
         "kernel_launches_per_frame": launches,
         "stage_host_ms_per_frame": stages,
         "mapping_rounds_in_window": rounds,
@@ -135,9 +181,7 @@ def main():
                 for e in prof_end.key_averages()
                 if e.key.startswith("mesh.") and not on_card(e)
                 and e.cpu_time_total > 0},
-            "device_busy_ms": sum(dev_time(e) for e in
-                                  prof_end.key_averages()
-                                  if on_card(e)) / 1e3,
+            "device_busy_ms": busy_us(prof_end) / 1e3,
         },
     }
     os.makedirs(args.out, exist_ok=True)

@@ -63,6 +63,7 @@ from remixfusion_tpu_torch.ops.brick_eval import (BRICK_SIDE,
 from remixfusion_tpu_torch.ops.tsdf import bm_vox_flat, window_index
 from remixfusion_tpu_torch.parallel.launch import collectives
 from remixfusion_tpu_torch.tracking import pst as pst_mod
+from remixfusion_tpu_torch.utils.spans import span
 
 EVAL_MODES = ("gather", "brick", "pallas")
 # tiers with at least this many pixels take the rotation-matrix branch of
@@ -653,38 +654,43 @@ class ROTracker:
         if (self.comm is not None and sample is None and generator is not None
                 and self.sample_range != 0.0):
             self.comm.sync_generator(generator)
-        vn = self.vertex_normal_maps(depth, sample, generator)
-        vol = self.track_view(tsdf)
+        with span("slice.track.vn"):
+            vn = self.vertex_normal_maps(depth, sample, generator)
+            vol = self.track_view(tsdf)
         for i in range(self.particle_iter_lens):
-            cls = count % 3
-            slab = self.slab_table[count]
-            level = self.class_level[cls]
-            value = self.score_tier(cls, slab, level, level_index, R, T, ss,
-                                    vn, vol, origin)
-            success_t, min_tsdf, mean_t, mean_q = self._cal_transform(
-                value, self.pst[cls][slab], ss)
-            origin_val = value[0]
-            success = bool(success_t)  # the one readback per iteration
-            if success:
-                T = T + mean_t
-                R = (self._quat_to_rot(mean_q)[:, :, None]
-                     * R[None, :, :]).sum(1)
-                if count < count_cap:
-                    count += 1
-            level_index = ((1 if self.fix_level_index else level_index + 5)
-                           % self.depth_level[count])
-            ss_new = self._update_pst(min_tsdf, mean_t, mean_q)
-            ema = ema_flag and success
-            if ema:
-                ss_new = self.beta * ss_new + (1 - self.beta) * prev_ss
-            elif success:
-                prev_ss = ss_new
-            ss = ss_new
-            ema_flag = ema or (success and self.iterative_scale)
-            if i == 0:
-                first_ok = success
-            if not success:
-                count = 0
+            with span("slice.track.score"):
+                cls = count % 3
+                slab = self.slab_table[count]
+                level = self.class_level[cls]
+                value = self.score_tier(cls, slab, level, level_index, R, T,
+                                        ss, vn, vol, origin)
+                success_t, min_tsdf, mean_t, mean_q = self._cal_transform(
+                    value, self.pst[cls][slab], ss)
+            with span("slice.track.readback"):
+                success = bool(success_t)  # the one readback per iteration
+            with span("slice.track.update"):
+                origin_val = value[0]
+                if success:
+                    T = T + mean_t
+                    R = (self._quat_to_rot(mean_q)[:, :, None]
+                         * R[None, :, :]).sum(1)
+                    if count < count_cap:
+                        count += 1
+                level_index = ((1 if self.fix_level_index
+                                else level_index + 5)
+                               % self.depth_level[count])
+                ss_new = self._update_pst(min_tsdf, mean_t, mean_q)
+                ema = ema_flag and success
+                if ema:
+                    ss_new = self.beta * ss_new + (1 - self.beta) * prev_ss
+                elif success:
+                    prev_ss = ss_new
+                ss = ss_new
+                ema_flag = ema or (success and self.iterative_scale)
+                if i == 0:
+                    first_ok = success
+                if not success:
+                    count = 0
         c2w = torch.eye(4, dtype=torch.float32, device=self.device)
         c2w[:3, :3] = R
         c2w[:3, 3] = T

@@ -19,12 +19,12 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from remixfusion_tpu_torch import host_to_device
 from remixfusion_tpu_torch.ops.marching_cubes import marching_cubes, \
     vertex_normals
 from remixfusion_tpu_torch.utils.meshio import write_ply_mesh
+from remixfusion_tpu_torch.utils.spans import span
 
 CHUNK = 1 << 18
 
@@ -105,14 +105,14 @@ def extract_mesh(scene, config, bound, marching_cube_bound=None,
     info = {} if info is None else info
 
     t0 = time.perf_counter()
-    with record_function("mesh.query"):
+    with span("mesh.query"):
         axes, flat_norm = grid_points(bound, marching_cube_bound,
                                       voxel_size, resolution)
         sh = tuple(len(a) for a in axes)
         sdf = query_points(sdf_fn, flat_norm, dev).reshape(sh)
         weight = query_points(scene.query_w_res, flat_norm, dev).reshape(sh)
     t1 = time.perf_counter()
-    with record_function("mesh.marching"):
+    with span("mesh.marching"):
         verts, faces = grid_to_mesh(sdf, weight, axes, config, isolevel)
     t2 = time.perf_counter()
     info.update(sdf=sdf, weight=weight, marching_ms=1000.0 * (t2 - t1),
@@ -120,7 +120,7 @@ def extract_mesh(scene, config, bound, marching_cube_bound=None,
     if len(faces) == 0:
         return verts, faces, None
 
-    with record_function("mesh.query"):
+    with span("mesh.query"):
         bound_np = np.asarray(bound, np.float32)
         vert_norm = ((verts - bound_np[:, 0])
                      / (bound_np[:, 1] - bound_np[:, 0])).astype(np.float32)
@@ -129,7 +129,7 @@ def extract_mesh(scene, config, bound, marching_cube_bound=None,
     t3 = time.perf_counter()
     info["query_ms"] += 1000.0 * (t3 - t2)
     if mesh_savepath:
-        with record_function("mesh.write"):
+        with span("mesh.write"):
             os.makedirs(os.path.dirname(mesh_savepath) or ".", exist_ok=True)
             write_ply_mesh(mesh_savepath, verts, faces, colors=colors,
                            normals=vertex_normals(verts, faces))
