@@ -193,6 +193,8 @@ def run_attempt(cfg, n_frames: int, warmup: int, device, profile=False):
         frame_mapped.append(len(slam.round_ms) > rounds)
 
     res = steady_state(frame_times, frame_mapped, warmup)
+    hits = slam.tracker.graph_hit[
+        (warmup - 1) * slam.tracker.particle_iter_lens:]
     res.update(
         launches={"brick_eval": be.brick_eval_volume.launches,
                   "hash_table_grad": he.hash_table_grad.launches},
@@ -206,6 +208,9 @@ def run_attempt(cfg, n_frames: int, warmup: int, device, profile=False):
                       if slam.round_ms else 0.0),
         sel_la_hit=(float(np.mean(slam.sel_la_hit))
                     if slam.sel_la_hit else None),
+        # share of the steady frames' tracker iterations served by
+        # CUDA-graph replays (0 where the loop runs eagerly)
+        track_graph_hit=(float(np.mean(hits)) if hits else None),
         recentres=len(slam.mv.frame_to_vrange),
         keyframes=len(slam.kfdb), keyframe_slots=slam.num_kf)
     if res["slow"]:
@@ -219,6 +224,9 @@ def run_attempt(cfg, n_frames: int, warmup: int, device, profile=False):
             log(f"#   slow frame={i} t={s:.2f}s mapped={m}")
     if res["sel_la_hit"] is not None:
         log(f"# selection lookahead hit rate: {res['sel_la_hit']:.2f}")
+    if res["track_graph_hit"] is not None:
+        log(f"# tracker iterations served by graph replays: "
+            f"{res['track_graph_hit']:.4f}")
     log(f"# frames={res['frames']} elapsed={res['elapsed_s']:.2f}s "
         f"track={res['track_ms']:.1f}ms/frame "
         f"map_round={res['ms_per_round']:.1f}ms")

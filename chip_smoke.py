@@ -1104,7 +1104,10 @@ def phase_real(torch, label):
     kernel = rotracker.brick_eval_volume
 
     def capture(params, pix, base, tsdf, layout_, table, **kw):
-        captured.append((params, pix, base, tsdf, layout_, table))
+        # copies: the tracker's kernel inputs are CUDA-graph outputs that
+        # the next replay of their tier overwrites
+        captured.append((params.clone(), pix.clone(), base.clone(), tsdf,
+                         layout_, table))
         del captured[:-iters]
         return kernel(params, pix, base, tsdf, layout_, table, **kw)
 

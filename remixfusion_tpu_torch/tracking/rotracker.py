@@ -36,7 +36,20 @@ three static-shape tiers). Here the tier's shape (C, P) depends on the
 device-side success of the previous iteration, so each iteration reads back
 one boolean; every other step stays on the device. The reference's CUDA
 tracker read candidate scores back every iteration too (ROtracker.py:
-570-571).
+570-571). The transform step computes both outcomes of an iteration and
+selects one by its success on the device (_step), so the host only keeps
+the tier bookkeeping.
+
+On a CUDA device with eval_mode 'pallas' and no process group, an
+iteration's chains of small ops replay as CUDA graphs (_Graphs): the
+frame's vertex and normal maps (sample_range 0), a tier's kernel inputs
+(one graph per level) and the transform step (one per tier class and EMA
+flag). The brick_eval launch stays outside them, called through this
+module's name. A graph is captured at its key's first call, which runs its
+ops eagerly; later calls copy what changed into its fixed inputs and
+replay it, the same kernels on the same values, so the bits do not change.
+Everywhere else the same bodies run eagerly. `graph_hit` records per
+iteration 1 when it was served by replays, else 0.
 
 Candidate sharding (the counterpart of JAX's ROTracker(mesh=...)): with a
 process group of D ranks, rank r scores the candidate columns
@@ -108,6 +121,70 @@ def check_modes(cfg):
     dt = track_dtype(cfg)
     if dt not in ("float32", "bfloat16"):
         raise ValueError(f"unknown volume.track_dtype {dt!r}")
+
+
+def _feed(dst: torch.Tensor, src: torch.Tensor):
+    """Copy src into a graph's fixed input dst unless src is dst."""
+    if src is not dst:
+        dst.copy_(src)
+
+
+class _Graphs:
+    """A tracker's CUDA graphs and the fixed tensors they read and write.
+
+    What outlives a replay lives in these tensors, allocated outside the
+    graphs' shared memory pool: the pose R [3, 3] / T [3], the search
+    sizes ss / prev_ss [6], origin [3], the depth [H, W] and its vertex /
+    normal maps, and per tier class the table slab [C, 6] and the costs
+    [C], per level the subgrid's rows and columns. A graph's own outputs
+    are read before any other graph replays, so the graphs may replay in
+    any order."""
+
+    def __init__(self, tr: "ROTracker"):
+        dev = tr.device
+        f32 = {"dtype": torch.float32, "device": dev}
+        self.device = dev
+        self.R = torch.zeros((3, 3), **f32)
+        self.T = torch.zeros(3, **f32)
+        self.ss = torch.zeros(6, **f32)
+        self.prev_ss = torch.zeros(6, **f32)
+        self.origin = torch.zeros(3, **f32)
+        self.depth = torch.zeros((tr.H, tr.W), **f32)
+        self.vn = (torch.zeros((tr.H, tr.W, 4), **f32),
+                   torch.zeros((tr.H, tr.W, 3), **f32))
+        self.table = {c: torch.zeros_like(tr.pst[c][0]) for c in range(3)}
+        self.value = {c: torch.zeros(tr.pst[c].shape[1], **f32)
+                      for c in range(3)}
+        self.subgrid = {}  # level -> int64 [rows + cols]
+        with torch.cuda.device(dev):
+            self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(dev)
+        self.graphs = {}  # key -> (CUDAGraph, its outputs)
+        self.captured = False  # a capture since the flag was cleared
+
+    def run(self, key, fn):
+        """fn()'s outputs: its graph replayed, or at the key's first call
+        fn run eagerly (which also warms it up) and then captured."""
+        hit = self.graphs.get(key)
+        if hit is not None:
+            hit[0].replay()
+            return hit[1]
+        out = fn()
+        graph = torch.cuda.CUDAGraph()
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            # thread_local: only this thread's unsafe calls end a capture
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
+            try:
+                captured = fn()
+            finally:
+                graph.capture_end()
+        cur.wait_stream(self.stream)
+        self.graphs[key] = (graph, captured)
+        self.captured = True
+        return out
 
 
 class ROTracker:
@@ -205,20 +282,38 @@ class ROTracker:
                                     device=dev)
         self._dims_hi = self._dims_t - 1 - BRICK_SIDE
         self._subgrids = {}
+        # an iteration's small ops replay as CUDA graphs where nothing
+        # inside it needs the host: the kernel's path, one process
+        self.graphed = (dev.type == "cuda" and self.eval_mode == "pallas"
+                        and self.comm is None)
+        self._graphs = _Graphs(self) if self.graphed else None
+        # per iteration: 1 when served by graph replays, 0 when run
+        # eagerly or captured
+        self.graph_hit = []
 
     # -------------------------------------------------- frame preparation
 
-    def _rows_cols(self, level: int, level_index: int):
+    def _subgrid(self, level: int, level_index: int) -> torch.Tensor:
+        """A tier's pixel subgrid as one int64 tensor [rows + cols];
+        level_index rotates its offset over the stride."""
         key = (level, level_index)
         if key not in self._subgrids:
             sr, sc = self.tier_strides[level]
             dev = self.device
-            self._subgrids[key] = (
+            self._subgrids[key] = torch.cat([
                 torch.arange(self.H // sr, device=dev) * sr
                 + (level_index * sr) // level,
                 torch.arange(self.W // sc, device=dev) * sc
-                + (level_index * sc) // level)
+                + (level_index * sc) // level])
         return self._subgrids[key]
+
+    def _split(self, subgrid: torch.Tensor, level: int):
+        """(rows, cols) of a subgrid tensor of `level`."""
+        n = self.H // self.tier_strides[level][0]
+        return subgrid[:n], subgrid[n:]
+
+    def _rows_cols(self, level: int, level_index: int):
+        return self._split(self._subgrid(level, level_index), level)
 
     def _vertex_normal_at(self, depth, rows, cols):
         """Vertex [P, 4] / normal [P, 3] at the rows x cols subgrid straight
@@ -352,7 +447,10 @@ class ROTracker:
         """(vertex [P, 4], normal [P, 3], pix_ok [P]) at one tier's pixel
         subgrid; vn = vertex_normal_maps(depth); level_index rotates the
         subgrid offset over the stride."""
-        rows, cols = self._rows_cols(level, level_index)
+        return self._pixels_at(vn, *self._rows_cols(level, level_index))
+
+    def _pixels_at(self, vn, rows, cols):
+        """_tier_pixels at given subgrid rows and columns."""
         vertex, normal = vn
         # the initial level_index (5) can push a subgrid past the last row or
         # column; the subgrid computation clamps such reads, and a clamped
@@ -371,7 +469,12 @@ class ROTracker:
         [P, 3]) for one tier (_eval_tier_pallas's preparation, without the
         window gather: the kernel reads the windows at base from the
         volume); vn from vertex_normal_maps."""
-        v, _, pix_ok = self._tier_pixels(vn, level, level_index)
+        return self._inputs_at(*self._rows_cols(level, level_index), R, T,
+                               ss, vn, origin)
+
+    def _inputs_at(self, rows, cols, R, T, ss, vn, origin):
+        """tier_inputs at given subgrid rows and columns."""
+        v, _, pix_ok = self._pixels_at(vn, rows, cols)
         g = (v[:, None, :3] * R[None, :, :]).sum(-1)  # R @ v, full f32
         gt = v[:, 3]
         inv_vox = self._inv_vox
@@ -556,10 +659,16 @@ class ROTracker:
                    origin):
         """Cost [C] of every candidate of tier `cls`'s table slab in the
         tracker's eval_mode; vol: the volume as track() reads it. With a
-        group this rank scores its columns and the costs are gathered."""
+        group this rank scores its columns and the costs are gathered.
+        When graphed, the kernel's inputs come from a graph replay (the
+        brick_eval launch is eager) and the costs are a fresh tensor."""
         if self.eval_mode == "pallas":
-            params, pix, base = self.tier_inputs(level, level_index, R, T,
-                                                 ss, vn, origin)
+            if self.graphed:
+                params, pix, base = self._graphed_inputs(
+                    level, level_index, R, T, ss, vn, origin)
+            else:
+                params, pix, base = self.tier_inputs(level, level_index, R,
+                                                     T, ss, vn, origin)
             value = brick_eval_volume(params, pix, base, vol,
                                       self.brick_layout,
                                       self.pst_t_rank[cls][slab],
@@ -576,6 +685,58 @@ class ROTracker:
         if self.comm.rank > 0:
             value = value[1:]
         return self.comm.all_gather_cat(value)
+
+    # ------------------------------------------------------- CUDA graphs
+
+    def _graphed_inputs(self, level, level_index, R, T, ss, vn, origin):
+        """tier_inputs from the level's graph: the arguments are fed into
+        its fixed inputs (track passes those themselves), the subgrid of
+        level_index is copied in; the outputs are overwritten by the
+        level's next replay."""
+        g = self._graphs
+        for dst, src in ((g.R, R), (g.T, T), (g.ss, ss), (g.origin, origin),
+                         *zip(g.vn, vn)):
+            _feed(dst, src)
+        sub = self._subgrid(level, level_index)
+        if level not in g.subgrid:
+            g.subgrid[level] = torch.empty_like(sub)
+        fixed = g.subgrid[level]
+        fixed.copy_(sub)
+        return g.run(("inputs", level), lambda: self._inputs_at(
+            *self._split(fixed, level), g.R, g.T, g.ss, g.vn, g.origin))
+
+    def _graphed_vn(self, depth, sample, generator):
+        """The frame's vertex and normal maps in the graphs' fixed maps:
+        from a graph with sample_range 0, else computed and copied in."""
+        g = self._graphs
+
+        def fill(maps):
+            for dst, src in zip(g.vn, maps):
+                dst.copy_(src)
+
+        if self.sample_range != 0.0:
+            fill(self.vertex_normal_maps(depth, sample, generator))
+        else:
+            _feed(g.depth, depth)
+            g.run(("vn",), lambda: fill(self.vertex_normal_maps(g.depth)))
+        return g.vn
+
+    def _graphed_step(self, value, cls, slab, ema_flag: bool):
+        """_step in the tier class's graph on the fixed pose and search
+        sizes, which it updates in place; the success flag [] is
+        overwritten by the next replay."""
+        g = self._graphs
+        _feed(g.value[cls], value)
+        g.table[cls].copy_(self.pst[cls][slab])
+
+        def step():
+            success, *new = self._step(g.value[cls], g.table[cls], g.R, g.T,
+                                       g.ss, g.prev_ss, ema_flag)
+            for dst, src in zip((g.R, g.T, g.ss, g.prev_ss), new):
+                _feed(dst, src)
+            return success
+
+        return g.run(("step", cls, ema_flag), step)
 
     def track_view(self, tsdf):
         """The volume as track() reads it: [NB, b^3] float32 for the kernel
@@ -594,7 +755,7 @@ class ROTracker:
         (reference cal_transform, ROtracker.py:606-708)."""
         origin = value[0]
         improving = value < origin
-        improving[0] = False
+        improving[0].fill_(False)  # no host scalar: graph-safe
         cum = torch.cumsum(improving.to(torch.int32), 0)
         take = improving & (cum <= self.count_search)
         w = torch.where(take, origin - value, 0.0)
@@ -633,6 +794,28 @@ class ROTracker:
             2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw),
             1 - 2 * (qx * qx + qy * qy)]).reshape(3, 3)
 
+    def _step(self, value, table, R, T, ss, prev_ss, ema_flag: bool):
+        """One iteration's transform step and search-size update, on the
+        device: (success [], R, T, ss, prev_ss) after it. On success the
+        pose moves by the mean of the improving candidates and, without
+        ema_flag (the previous iteration's EMA flag, a host value), prev_ss
+        takes the new search size; with it, the new size is blended with
+        prev_ss, which is kept. Both outcomes are computed with the
+        host-branched step's arithmetic and one is selected by success, so
+        the bits are that step's (reference ROtracker.py:606-708)."""
+        success, min_tsdf, mean_t, mean_q = self._cal_transform(value, table,
+                                                                ss)
+        T_new = torch.where(success, T + mean_t, T)
+        R_new = torch.where(success, (self._quat_to_rot(mean_q)[:, :, None]
+                                      * R[None, :, :]).sum(1), R)
+        ss_new = self._update_pst(min_tsdf, mean_t, mean_q)
+        if ema_flag:
+            blend = self.beta * ss_new + (1 - self.beta) * prev_ss
+            return (success, R_new, T_new,
+                    torch.where(success, blend, ss_new), prev_ss)
+        return (success, R_new, T_new, ss_new,
+                torch.where(success, ss_new, prev_ss))
+
     # -------------------------------------------------------------- track
 
     def track(self, tsdf, origin, c2w_init, depth, ss_init=None,
@@ -642,11 +825,25 @@ class ROTracker:
         [4, 4], depth [H, W] — device tensors; sample / generator as
         vertex_normal_maps takes them (sample_range != 0 only). One boolean
         is read back per iteration (the tier choice needs it on the
-        host)."""
-        R = c2w_init[:3, :3].clone()
-        T = c2w_init[:3, 3].clone()
-        ss = self.init_search_size() if ss_init is None else ss_init
-        prev_ss = torch.zeros(6, dtype=torch.float32, device=self.device)
+        host). The result's tensors are the caller's: no later call
+        writes them."""
+        g = self._graphs if self.graphed else None
+        if g is None:
+            R = c2w_init[:3, :3].clone()
+            T = c2w_init[:3, 3].clone()
+            ss = self.init_search_size() if ss_init is None else ss_init
+            prev_ss = torch.zeros(6, dtype=torch.float32, device=self.device)
+        else:
+            R, T, ss, prev_ss = g.R, g.T, g.ss, g.prev_ss
+            R.copy_(c2w_init[:3, :3])
+            T.copy_(c2w_init[:3, 3])
+            if ss_init is None:
+                ss.fill_(self.init_size)
+            else:
+                ss.copy_(ss_init)
+            prev_ss.zero_()
+            _feed(g.origin, origin)
+            origin = g.origin
         count, level_index = 0, 5
         ema_flag, first_ok = False, False
         count_cap = min(self.particle_iter_lens - 1, 19)
@@ -655,46 +852,48 @@ class ROTracker:
                 and self.sample_range != 0.0):
             self.comm.sync_generator(generator)
         with span("slice.track.vn"):
-            vn = self.vertex_normal_maps(depth, sample, generator)
+            if g is None:
+                vn = self.vertex_normal_maps(depth, sample, generator)
+            else:
+                vn = self._graphed_vn(depth, sample, generator)
             vol = self.track_view(tsdf)
         for i in range(self.particle_iter_lens):
             with span("slice.track.score"):
+                if g is not None:
+                    g.captured = False
                 cls = count % 3
                 slab = self.slab_table[count]
                 level = self.class_level[cls]
                 value = self.score_tier(cls, slab, level, level_index, R, T,
                                         ss, vn, vol, origin)
-                success_t, min_tsdf, mean_t, mean_q = self._cal_transform(
-                    value, self.pst[cls][slab], ss)
+                if g is None:
+                    success_t, R, T, ss, prev_ss = self._step(
+                        value, self.pst[cls][slab], R, T, ss, prev_ss,
+                        ema_flag)
+                else:
+                    success_t = self._graphed_step(value, cls, slab,
+                                                   ema_flag)
             with span("slice.track.readback"):
                 success = bool(success_t)  # the one readback per iteration
             with span("slice.track.update"):
                 origin_val = value[0]
-                if success:
-                    T = T + mean_t
-                    R = (self._quat_to_rot(mean_q)[:, :, None]
-                         * R[None, :, :]).sum(1)
-                    if count < count_cap:
-                        count += 1
+                if success and count < count_cap:
+                    count += 1
                 level_index = ((1 if self.fix_level_index
                                 else level_index + 5)
                                % self.depth_level[count])
-                ss_new = self._update_pst(min_tsdf, mean_t, mean_q)
-                ema = ema_flag and success
-                if ema:
-                    ss_new = self.beta * ss_new + (1 - self.beta) * prev_ss
-                elif success:
-                    prev_ss = ss_new
-                ss = ss_new
-                ema_flag = ema or (success and self.iterative_scale)
+                ema_flag = ((ema_flag and success)
+                            or (success and self.iterative_scale))
                 if i == 0:
                     first_ok = success
                 if not success:
                     count = 0
+                self.graph_hit.append(int(g is not None and not g.captured))
         c2w = torch.eye(4, dtype=torch.float32, device=self.device)
         c2w[:3, :3] = R
         c2w[:3, 3] = T
-        return TrackResult(c2w, ss, first_ok, origin_val)
+        return TrackResult(c2w, ss if g is None else ss.clone(), first_ok,
+                           origin_val)
 
     def init_search_size(self) -> torch.Tensor:
         return torch.full((6,), self.init_size, dtype=torch.float32,

@@ -553,3 +553,131 @@ def test_image_metrics_on_card_match_cpu(cuda_device):
     lp_g = lpips.lpips(img, gt, device=cuda_device,
                        net=lpips.LPIPS(params).to(cuda_device))
     assert lp_c > 1e-3 and abs(lp_g - lp_c) <= 1e-4 * lp_c
+
+
+def corridor_walk_config(tmp_path):
+    """The CPU pipeline tests' small two-room building (tests/
+    test_torch_pipeline.py _corridor_cfg), walked at ~25 cm per frame: the
+    volume re-centres whenever the camera has moved half a metre along an
+    axis, twice in 11 frames."""
+    from helpers import tiny_config
+
+    cfg = tiny_config(
+        dataset="synthetic_large",
+        data={"output": str(tmp_path), "exp_name": "graphs",
+              "synthetic": {"n_frames": 80, "n_rooms": 2, "room_width": 3.4,
+                            "room_depth": 3.2, "corridor_width": 2.0,
+                            "n_boxes_per_room": 4, "n_spheres_per_room": 2,
+                            "ramp_frames": 3}},
+        RO={"particle_iter_lens": 6, "depth_level": [4, 2, 1],
+            "eval_mode": "pallas", "PST_size": [256, 128, 128],
+            "init_size": 0.02, "count_search": 100, "iterative_scale": True},
+        volume={"voxel_size": 0.025, "t_treshold": 0.5},
+        tracking={"harvest_depth": 1},
+        mapping={"bound": [[0.0, 7.0], [0.0, 3.0], [0.0, 5.4]],
+                 "marching_cubes_bound": [[0.0, 7.0], [0.0, 3.0],
+                                          [0.0, 5.4]]},
+        mesh={"vis": 0})
+    return cfg
+
+
+def recorded_track_run(cfg, device, n_frames):
+    """Run the pipeline over n_frames, recording every track call: its
+    inputs (copied), its result with a copy taken when it returned, and
+    each iteration's tier and costs. (slam, records)."""
+    import copy
+
+    from remixfusion_tpu_torch.slam import RemixFusionTorch
+
+    slam = RemixFusionTorch(copy.deepcopy(cfg), device=device)
+    tr = slam.tracker
+    orig_track, orig_score = tr.track, tr.score_tier
+    records = []
+
+    def score_tier(cls, slab, level, level_index, *a):
+        value = orig_score(cls, slab, level, level_index, *a)
+        records[-1]["iters"].append((cls, slab, level, level_index,
+                                     value.clone()))
+        return value
+
+    def track(tsdf, origin, c2w_init, depth, *a, **k):
+        rec = {"args": (tsdf.clone(), origin.clone(), c2w_init.clone(),
+                        depth.clone()),
+               "tsdf": tsdf, "iters": []}
+        records.append(rec)
+        res = orig_track(tsdf, origin, c2w_init, depth, *a, **k)
+        rec["res"] = res
+        rec["copy"] = (res.c2w.clone(), res.search_size.clone(),
+                       res.origin_value.clone())
+        return res
+
+    tr.track, tr.score_tier = track, score_tier
+    slam.first_frame_mapping()
+    for i in range(1, n_frames):
+        slam.step(i, n_frames)
+    return slam, records
+
+
+def eager_replay(cfg, tr, records, device):
+    """Each recorded track call again on a tracker of the same settings
+    that runs the same bodies eagerly: [(result, iterations)]."""
+    import copy
+
+    from remixfusion_tpu_torch.tracking.rotracker import ROTracker
+
+    eager = ROTracker(copy.deepcopy(cfg), tr.H, tr.W, tr.K.cpu().numpy(),
+                      tr.vol_dims, tr.voxel_size, tr.brick_layout, device)
+    eager.graphed = False
+    orig_score = eager.score_tier
+    out = []
+
+    def score_tier(cls, slab, level, level_index, *a):
+        value = orig_score(cls, slab, level, level_index, *a)
+        out[-1][1].append((cls, slab, level, level_index, value.clone()))
+        return value
+
+    eager.score_tier = score_tier
+    for rec in records:
+        out.append([None, []])
+        out[-1][0] = eager.track(*rec["args"])
+    assert eager.graph_hit == [0] * len(eager.graph_hit)
+    return out
+
+
+@pytest.mark.gpu
+def test_graphed_track_matches_eager_on_card(cuda_device, tmp_path):
+    """The tracker's CUDA-graph replays against the same bodies run
+    eagerly, bitwise: every iteration's tier and costs, the final pose and
+    search size and the fitness, over 11 frames of a walk that crosses all
+    three tiers and two re-centres (a new volume tensor and origin). The
+    tensors a call returned do not change in later calls, and every
+    iteration but those that captured a graph is served by replays."""
+    cfg = corridor_walk_config(tmp_path)
+    slam, records = recorded_track_run(cfg, cuda_device, 11)
+    tr = slam.tracker
+    assert tr.graphed
+    torch.cuda.synchronize()
+    assert {it[0] for rec in records for it in rec["iters"]} == {0, 1, 2}
+    assert len({tuple(rec["args"][1].tolist()) for rec in records}) >= 3
+    assert len({rec["tsdf"].data_ptr() for rec in records}) >= 2
+    for rec in records:
+        res = rec["res"]
+        for got, kept in zip((res.c2w, res.search_size, res.origin_value),
+                             rec["copy"]):
+            assert torch.equal(got, kept)
+    hits = tr.graph_hit
+    iters = tr.particle_iter_lens
+    assert len(hits) == iters * len(records)
+    # one graph of maps; the others serve iterations, each captured once
+    assert hits.count(0) <= len(tr._graphs.graphs) - 1
+    assert hits[-iters:] == [1] * iters
+    for rec, (res, its) in zip(records, eager_replay(cfg, tr, records,
+                                                     cuda_device)):
+        assert len(its) == len(rec["iters"]) == iters
+        for got, want in zip(rec["iters"], its):
+            assert got[:4] == want[:4]
+            assert torch.equal(got[4], want[4])
+        assert torch.equal(rec["copy"][0], res.c2w)
+        assert torch.equal(rec["copy"][1], res.search_size)
+        assert torch.equal(rec["copy"][2], res.origin_value)
+        assert rec["res"].first_iter_success == res.first_iter_success
