@@ -507,8 +507,9 @@ class RemixFusionTorch:
             self.sel_la_hit.append(1)
         else:
             self.sel_la_hit.append(0)
-            bricks = mv.frame_bricks(init, np.asarray(batch["depth"]),
-                                     self.K, fs_span=self._sel_reuse)
+            with span("slice.select.bricks.inline"):
+                bricks = mv.frame_bricks(init, np.asarray(batch["depth"]),
+                                         self.K, fs_span=self._sel_reuse)
         ids = mv.brick_ids(bricks)
         self._sel_cache = (frame_id, mv.vol_bnds[:, 0].copy(), ids)
         return ids

@@ -35,6 +35,7 @@ from remixfusion_tpu_torch import host_to_device
 from remixfusion_tpu_torch.ops import tsdf as tsdf_ops
 from remixfusion_tpu_torch.ops.marching_cubes import marching_cubes, \
     vertex_normals
+from remixfusion_tpu_torch.utils.spans import span
 
 
 # tile edges of the dense volume's frustum-tiled fusion, coarsest first
@@ -194,7 +195,8 @@ class MovingVolume:
         """Re-center policy for frame cur_id; shifts the device volume when
         thresholds trip (Volume.py:930-1082). Returns True if the volume
         moved, and then records the old bounds for the frames since the
-        previous move."""
+        previous move. Each shift runs under the span
+        slice.select.recentre.shift."""
         old_bnds = self.vol_bnds.copy()
         moved = False
 
@@ -209,7 +211,8 @@ class MovingVolume:
         if tripped:
             tmp = np.round(tmp, 0)
             if not np.array_equal(tmp, old_bnds):
-                self._shift_to(tmp)
+                with span("slice.select.recentre.shift"):
+                    self._shift_to(tmp)
                 moved = True
             # re-anchor only the axes whose bounds moved after rounding: an
             # axis whose move rounded away keeps accumulating drift
@@ -236,7 +239,8 @@ class MovingVolume:
                 new_b[:, 1] = new_b[:, 0] + \
                     np.asarray(self.dims) * self.voxel_size
                 if not np.array_equal(new_b, self.vol_bnds):
-                    self._shift_to(new_b)
+                    with span("slice.select.recentre.shift"):
+                        self._shift_to(new_b)
                     moved = True
                 self.first_axis = first
                 self.kfx, self.kfy, self.kfz = (

@@ -1,7 +1,9 @@
 """The port's profiler spans (utils/spans.py): the gated helper, and the
 spans a tiny CPU run opens inside the tracker's iterations, the brick
-selection and the map and BA steps, each nested where its name says."""
+selection, the re-centre and the map and BA steps, each nested where its
+name says."""
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -77,7 +79,8 @@ def traced_run(tmp_path_factory):
             slam.step(i, N)
     out = dict(ranges=_ranges(prof), cfg=cfg,
                moves=len(slam.mv.frame_to_vrange) - moves0,
-               rounds=len(slam.round_ms) - rounds0)
+               rounds=len(slam.round_ms) - rounds0,
+               la_hit=slam.sel_la_hit[-(N - 2):])
     slam.close()
     return out
 
@@ -136,6 +139,63 @@ def test_the_recentre_span_holds_the_volume_move(traced_run):
     assert traced_run["moves"] == 1 and len(shifts) == 1
     recentres = _named(traced_run, "slice.select.recentre")
     assert _inside(shifts[0], recentres) == [recentres[MOVE - 2]]
+
+
+def test_the_shift_span_opens_only_on_a_move(traced_run):
+    recentres = _named(traced_run, "slice.select.recentre")
+    shifts = _named(traced_run, "slice.select.recentre.shift")
+    assert traced_run["moves"] == 1 and len(shifts) == 1
+    assert _inside(shifts[0], recentres) == [recentres[MOVE - 2]]
+    assert _inside(_named(traced_run, "unit.shift")[0], shifts)
+
+
+def test_the_inline_span_opens_only_for_a_selection_made_at_the_frame(
+        traced_run):
+    """A frame selects inline when no look-ahead selection serves it: the
+    move at MOVE discards the one made for it at the old origin."""
+    bricks = _named(traced_run, "slice.select.bricks")
+    inline = _named(traced_run, "slice.select.bricks.inline")
+    la_hit = traced_run["la_hit"]
+    assert len(bricks) == len(la_hit) == N - 2
+    assert la_hit[MOVE - 2] == 0 and 1 in la_hit
+    for b, hit in zip(bricks, la_hit):
+        assert len([r for r in inline if _inside(r, [b])]) == 1 - hit
+    assert len(inline) == la_hit.count(0)
+
+
+@pytest.mark.parametrize("version", ["center", "more"])
+def test_each_recentre_policy_shifts_under_the_shift_span(version):
+    """The translation policy (the anchor 1.5 m behind) and the 'more'
+    policy (the camera turned from looking along z to along y) each move
+    the volume once, inside slice.select.recentre.shift."""
+    from remixfusion_tpu_torch.tracking.volume import MovingVolume
+
+    mv = MovingVolume(tiny_config(volume={"version": version}), np.eye(4),
+                      "cpu")
+    c2w = np.eye(4)
+    if version == "center":
+        mv.kfx -= 1.5
+    else:
+        c2w[:3, :3] = [[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert mv.check_move(1, c2w)
+    names = [n for _, _, n in _ranges(prof)]
+    assert names == ["slice.select.recentre.shift"]
+
+
+def test_the_recentre_records_nothing_with_no_profiler(monkeypatch):
+    from remixfusion_tpu_torch.tracking.volume import MovingVolume
+
+    def boom(name):
+        raise AssertionError(f"range {name} recorded with no profiler")
+
+    monkeypatch.setattr(spans, "record_function", boom)
+    mv = MovingVolume(tiny_config(), np.eye(4), "cpu")
+    origin = mv.vol_bnds[:, 0].copy()
+    mv.kfx -= 1.5
+    assert mv.check_move(1, np.eye(4))
+    moved = mv.vol_bnds[:, 0] != origin
+    assert moved.tolist() == [True, False, False]
 
 
 class _Ev:
