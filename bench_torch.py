@@ -174,6 +174,8 @@ def run_attempt(cfg, n_frames: int, warmup: int, device, profile=False):
     map_iters0 = slam.map_iters_done
     sync(device)
     for idx in range(1, n_frames):
+        if idx == warmup:
+            map_hit0 = len(slam.mapper.graph_hit)
         if profile and idx == prof_range[0]:
             prof = _start_profiler(device)
             window = (time.perf_counter(), len(slam.round_ms))
@@ -195,6 +197,7 @@ def run_attempt(cfg, n_frames: int, warmup: int, device, profile=False):
     res = steady_state(frame_times, frame_mapped, warmup)
     hits = slam.tracker.graph_hit[
         (warmup - 1) * slam.tracker.particle_iter_lens:]
+    map_hits = slam.mapper.graph_hit[map_hit0:]
     res.update(
         launches={"brick_eval": be.brick_eval_volume.launches,
                   "hash_table_grad": he.hash_table_grad.launches},
@@ -211,6 +214,8 @@ def run_attempt(cfg, n_frames: int, warmup: int, device, profile=False):
         # share of the steady frames' tracker iterations served by
         # CUDA-graph replays (0 where the loop runs eagerly)
         track_graph_hit=(float(np.mean(hits)) if hits else None),
+        # the same for the steady frames' map and BA steps
+        map_graph_hit=(float(np.mean(map_hits)) if map_hits else None),
         recentres=len(slam.mv.frame_to_vrange),
         keyframes=len(slam.kfdb), keyframe_slots=slam.num_kf)
     if res["slow"]:
@@ -227,6 +232,9 @@ def run_attempt(cfg, n_frames: int, warmup: int, device, profile=False):
     if res["track_graph_hit"] is not None:
         log(f"# tracker iterations served by graph replays: "
             f"{res['track_graph_hit']:.4f}")
+    if res["map_graph_hit"] is not None:
+        log(f"# map and BA steps served by graph replays: "
+            f"{res['map_graph_hit']:.4f} of {len(map_hits)}")
     log(f"# frames={res['frames']} elapsed={res['elapsed_s']:.2f}s "
         f"track={res['track_ms']:.1f}ms/frame "
         f"map_round={res['ms_per_round']:.1f}ms")

@@ -30,6 +30,13 @@ iteration with the sampler's indices (g_idx [sample], c_idx [n_cur]), the
 depth-sample perturbation z_u [N, S] and the smoothness draws smooth_u
 ((offset [3], jitter [3])); tests feed both packages the same numbers
 through it.
+
+On a CUDA device the loss bodies inside the scene's mapping_losses and
+smoothness replay as CUDA graphs (models/scene_rep.py); the sampling, the
+ray transform, the RBA network, zero_grad and Adam stay eager, and every
+step still calls map_loss / ba_loss, _step and the scene's two methods
+through the instance. `graph_hit` records per step whether replays served
+it.
 """
 
 from __future__ import annotations
@@ -86,6 +93,10 @@ class Mapper:
         self.rba_opt = torch.optim.Adam(
             scene.rba.parameters(), lr=m["lr_pose"], betas=betas, eps=1e-15,
             weight_decay=1e-6)
+        # per map or BA step: 1 when its loss bodies were served by CUDA
+        # graph replays (models/loss_graphs.py), 0 when they ran eagerly
+        # or captured
+        self.graph_hit = []
 
     # ------------------------------------------------------------ resume
 
@@ -217,6 +228,13 @@ class Mapper:
         return self._weighted_loss(ret, True, draw.get("smooth_u"),
                                    generator)
 
+    def _note_hit(self, before):
+        """Append the step's graph_hit; `before`: the scene's graph_counts
+        when the step began."""
+        calls, replays = self.scene.graph_counts()
+        n = calls - before[0]
+        self.graph_hit.append(int(n > 0 and replays - before[1] == n))
+
     def _step(self, opt, loss):
         """One optimizer step on `loss`, inside the round's map.ba.* spans
         for the RBA optimizer and map.map.* for the map optimizer."""
@@ -236,10 +254,12 @@ class Mapper:
         losses [I] (device tensor)."""
         losses = []
         for i in range(ray_batches.shape[0]):
+            before = self.scene.graph_counts()
             with span("map.map.forward"):
                 loss = self.map_loss(ray_batches[i], rays_o_b[i],
                                      rays_d_b[i], generator=generator)
             losses.append(self._step(self.map_opt, loss))
+            self._note_hit(before)
         return torch.stack(losses)
 
     # ---------------------------------------- device-sampled mapping / BA
@@ -282,6 +302,7 @@ class Mapper:
         losses = []
         for i in range(n_iters):
             draw = None if draws is None else draws[i]
+            before = self.scene.graph_counts()
             with span("map.map.sample"):
                 rays, ids = self.sample_batch(
                     kf_store, n_kf, dirs_flat, rgb_flat, depth_flat,
@@ -291,6 +312,7 @@ class Mapper:
             with span("map.map.forward"):
                 loss = self.map_loss(rays, rays_o, rays_d, draw, generator)
             losses.append(self._step(self.map_opt, loss))
+            self._note_hit(before)
         return torch.stack(losses)
 
     def ba_loss(self, rays, ids, draw=None, generator=None):
@@ -318,6 +340,7 @@ class Mapper:
         with frozen(scene.field_parameters() + scene.decoder_parameters()):
             for i in range(n_iters):
                 draw = None if draws is None else draws[i]
+                before = self.scene.graph_counts()
                 with span("map.ba.sample"):
                     rays, ids = self.sample_batch(
                         kf_store, n_kf, dirs_flat, rgb_flat, depth_flat,
@@ -325,6 +348,7 @@ class Mapper:
                 with span("map.ba.forward"):
                     loss = self.ba_loss(rays, ids, draw, generator)
                 losses.append(self._step(self.rba_opt, loss))
+                self._note_hit(before)
         with torch.no_grad():
             poses_all = scene.rba(torch.arange(scene.num_kf,
                                                device=dirs_flat.device))

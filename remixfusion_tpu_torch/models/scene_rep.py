@@ -29,6 +29,15 @@ incremental refresher are TPU layout and have no counterpart.
 Every random draw takes an explicit torch.Generator, and sample_z_vals and
 smoothness also accept their uniform draws as arguments, so tests can give
 both packages the same numbers.
+
+On a CUDA device the bodies of mapping_losses and smoothness, forward and
+backward, replay as CUDA graphs (models/loss_graphs.py) wherever a graph
+can serve: the scene holds its grid, grad is enabled and something takes a
+gradient, no count_reduce (the sharded step's collectives), and not both
+the rays and a hash table at once. Their draws stay eager and come first,
+in the eager body's order. Elsewhere the same bodies run eagerly.
+`graph_counts` gives the calls of both methods and those served by
+replays.
 """
 
 from __future__ import annotations
@@ -38,7 +47,9 @@ import torch
 from torch import nn
 
 from remixfusion_tpu_torch.models.decoder import ColorSDFNet
-from remixfusion_tpu_torch.models.encodings import get_encoder
+from remixfusion_tpu_torch.models.encodings import HashGridEncoding, \
+    get_encoder
+from remixfusion_tpu_torch.models.loss_graphs import LossGraphs
 from remixfusion_tpu_torch.models.rba import RBA
 
 
@@ -120,6 +131,11 @@ class SceneRepresentation(nn.Module):
         with torch.no_grad():
             self.decoder_res.reset_parameters(generator)
             self.rba.reset_parameters(generator)
+        # the loss bodies replay as CUDA graphs where one can serve (None
+        # until the first such call); graph_counts' call counter
+        self.graphed = grid_rows is None
+        self._graphs = None
+        self._body_calls = 0
 
     # --------------------------------------------------- parameter groups
 
@@ -139,6 +155,18 @@ class SceneRepresentation(nn.Module):
         if isinstance(self.hash_table, nn.ParameterDict):
             return dict(self.hash_table.items())
         return self.hash_table
+
+    def _embed(self, pts: torch.Tensor) -> torch.Tensor:
+        """The residual encoding at normalized points [N, 3]; inside a
+        loss body's graph capture a hash table's gradient is deferred to
+        its eager kernel (LossGraphs.defer)."""
+        table = self._table()
+        if self._graphs is not None and isinstance(
+                self.embed_res_fn, HashGridEncoding):
+            leaf = self._graphs.defer(self.embed_res_fn, table, pts)
+            if leaf is not None:
+                return leaf
+        return self.embed_res_fn(table, pts)
 
     # ---------------------------------------------------- explicit volume
 
@@ -219,7 +247,7 @@ class SceneRepresentation(nn.Module):
         """Residual-corrected SDF at normalized points [N, 3]
         (reference scene_rep.py:212-248); embed=True returns the residual
         encoding alone."""
-        embedded = self.embed_res_fn(self._table(), pts)
+        embedded = self._embed(pts)
         if embed:
             return embedded
         embedded_pos = self.embedpos_fn(None, pts)
@@ -243,7 +271,7 @@ class SceneRepresentation(nn.Module):
         (scene_rep.py:285-298). The decoder gets the explicit tsdf raw:
         neither rescaled by c_trunc / trunc nor clamped, unlike
         query_color_sdf."""
-        embedded = self.embed_res_fn(self._table(), pts)
+        embedded = self._embed(pts)
         embedded_pos = self.embedpos_fn(None, pts)
         ex_trgb = self.query_gbv(pts)
         raw = self.decoder_res(embedded, embedded_pos, ex_trgb[..., :1],
@@ -259,7 +287,7 @@ class SceneRepresentation(nn.Module):
         reading the explicit grid through the bf16 mirror when it is held
         (query_gbq); `clamp` is the bundle-adjustment clamping of the
         explicit TSDF (scene_rep.py:314-349)."""
-        embedded = self.embed_res_fn(self._table(), pts)
+        embedded = self._embed(pts)
         embedded_pos = self.embedpos_fn(None, pts)
         ex_trgb = self.query_gbq(pts)
         tmp_tsdf = self._explicit_tsdf(ex_trgb)
@@ -347,7 +375,46 @@ class SceneRepresentation(nn.Module):
         return {"rgb_res_map": rgb_map, "depth_res_map": depth_map,
                 "z_vals": z_vals, "raw": raw}
 
+    # ------------------------------------------------------- CUDA graphs
+
+    def _loss_graphs(self, params, rays=()):
+        """The scene's LossGraphs where a graph can serve a loss body that
+        reads `params` at `rays`, else None."""
+        if not (self.graphed and self.bound_box.is_cuda
+                and torch.is_grad_enabled()):
+            return None
+        ray_grad = any(r.requires_grad for r in rays)
+        if not (ray_grad or any(p.requires_grad for p in params)):
+            return None
+        if (ray_grad and isinstance(self.embed_res_fn, HashGridEncoding)
+                and self.hash_table.requires_grad):
+            return None  # its table gradient could not stay eager
+        if self._graphs is None:
+            self._graphs = LossGraphs(self, self.bound_box.device)
+        return self._graphs
+
+    def _graph_key(self, kind, fed, params, *static):
+        """A body's graph key: its kind and static arguments, the fed
+        tensors' shapes, what takes a gradient, and the addresses of the
+        parameters and grids it reads in place."""
+        return (kind, static,
+                tuple(None if x is None else (tuple(x.shape),
+                                              x.requires_grad)
+                      for x in fed),
+                tuple((p.data_ptr(), p.requires_grad) for p in params),
+                tuple(g.data_ptr() for g in (self.gbq, self.gbv)
+                      if g is not None))
+
+    def graph_counts(self):
+        """(calls of mapping_losses and smoothness, of them the calls
+        served by CUDA-graph replays)."""
+        return (self._body_calls,
+                0 if self._graphs is None else self._graphs.replays)
+
     # ------------------------------------------------------------- losses
+
+    LOSSES = ("rgb_res_loss", "depth_res_loss", "sdf_res_loss",
+              "fs_res_loss")
 
     def mapping_losses(self, rays_o, rays_d, target_rgb, target_d,
                        clamp: bool = False, u=None, generator=None,
@@ -355,7 +422,35 @@ class SceneRepresentation(nn.Module):
         """Render + the four mapping losses (reference scene_rep.py:460-528,
         model/utils.py:170-256). count_reduce: None, or a function that
         sums a tensor of counts over the ranks of a sharded step, so that
-        the masked means divide by the whole batch's counts."""
+        the masked means divide by the whole batch's counts. Served by CUDA
+        graphs, the returned tensors are overwritten by the next call of
+        the same kind (map or, with clamp, BA)."""
+        self._body_calls += 1
+        params = self.field_parameters() + self.decoder_parameters()
+        graphs = (None if count_reduce is not None
+                  else self._loss_graphs(params, (rays_o, rays_d)))
+        if graphs is None:
+            return self._mapping_losses(rays_o, rays_d, target_rgb, target_d,
+                                        clamp, u, generator, count_reduce)
+        if u is None and self.config["training"]["perturb"] > 0:
+            u = torch.rand(self.z_vals_shape(rays_o.shape[0]),
+                           generator=generator, device=rays_o.device)
+        fed = (rays_o, rays_d, target_rgb, target_d, u)
+        kind = "ba" if clamp else "map"
+
+        def body(*f):
+            ret = self._mapping_losses(*f[:4], clamp, f[4])
+            return tuple(ret[k] for k in self.LOSSES + ("rgb_res",
+                                                        "depth_res"))
+
+        out = graphs.run(kind, self._graph_key(kind, fed, params), body, fed,
+                         params, self.hash_table, self.embed_res_fn,
+                         n_diff=len(self.LOSSES))
+        return dict(zip(self.LOSSES + ("rgb_res", "depth_res"), out))
+
+    def _mapping_losses(self, rays_o, rays_d, target_rgb, target_d,
+                        clamp=False, u=None, generator=None,
+                        count_reduce=None):
         cfg = self.config
         rend = self.render_rays(rays_o, rays_d, target_d, clamp=clamp, u=u,
                                 generator=generator)
@@ -413,8 +508,7 @@ class SceneRepresentation(nn.Module):
         bb = self.bound_box
         dev = bb.device
         if u is None:
-            u = (torch.rand(3, generator=generator, device=dev),
-                 torch.rand(3, generator=generator, device=dev))
+            u = self.smoothness_draws(generator)
         grid_size = (sample_points - 1) * voxel_size
         offset_max = bb[:, 1] - bb[:, 0] - grid_size - 2 * margin
         offset = u[0] * offset_max + margin
@@ -425,10 +519,32 @@ class SceneRepresentation(nn.Module):
             + bb[:, 0] + offset
         return self.normalize(pts.reshape(-1, 3))
 
+    def smoothness_draws(self, generator=None):
+        """The smoothness sub-grid's draws: (offset [3], jitter [3])."""
+        dev = self.bound_box.device
+        return (torch.rand(3, generator=generator, device=dev),
+                torch.rand(3, generator=generator, device=dev))
+
     def smoothness(self, sample_points=256, voxel_size=0.1, margin=0.05,
                    u=None, generator=None):
         """TV smoothness of the residual embedding over a random sub-grid
         (reference mp_slam/slam.py:193-217)."""
+        self._body_calls += 1
+        params = self.field_parameters()
+        graphs = self._loss_graphs(params)
+        if graphs is None:
+            return self._smoothness(sample_points, voxel_size, margin, u,
+                                    generator)
+        u = tuple(self.smoothness_draws(generator) if u is None else u)
+        key = self._graph_key("smoothness", u, params, sample_points,
+                              voxel_size, margin)
+        return graphs.run(
+            "smoothness", key, lambda *f: (self._smoothness(
+                sample_points, voxel_size, margin, f),), u, params,
+            self.hash_table, self.embed_res_fn)[0]
+
+    def _smoothness(self, sample_points, voxel_size, margin, u=None,
+                    generator=None):
         n = sample_points - 1
         pts = self.smoothness_points(sample_points, voxel_size, margin, u=u,
                                      generator=generator)

@@ -88,3 +88,71 @@ def tiny_config(**overrides):
 
     merge(cfg, overrides)
     return cfg
+
+
+def map_round_state(enc, device, seed=3):
+    """A mapping round's state on `device` at tiny_config sizes: a scene
+    whose global grid holds a 0.9 m sphere's truncated SDF (its mirror
+    refreshed) under random decoders, its Mapper, a keyframe store of
+    three keyframes and the round's inputs. (mapper, inputs): inputs holds
+    the arguments map_step_dev / ba_step_dev take besides n_iters, n_cur
+    and the draws, and `n_cur`, two current-frame budgets of different
+    buckets."""
+    import torch
+
+    from remixfusion_tpu_torch.mapping.keyframe import DeviceKeyFrameStore
+    from remixfusion_tpu_torch.mapping.mapper import Mapper
+    from remixfusion_tpu_torch.models.scene_rep import SceneRepresentation
+
+    cfg = tiny_config(grid={"enc": enc})
+    bound = np.asarray(cfg["mapping"]["bound"], np.float32)
+    num_kf = 8
+    scene = SceneRepresentation(
+        cfg, bound, num_kf, device=device,
+        generator=torch.Generator(device).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    with torch.no_grad():
+        for p in scene.decoder_res.parameters():
+            p.copy_(torch.tensor(rng.uniform(-0.15, 0.15, tuple(p.shape)),
+                                 **f32))
+        R = scene.gbv_resolution
+        w = np.stack(np.meshgrid(*[np.arange(R)] * 3, indexing="ij"),
+                     -1) / R * 4.0
+        d = np.linalg.norm(w - (2.0, 2.1, 1.9), axis=-1) - 0.9
+        scene.gbv[..., 0] = torch.tensor(np.clip(d / 0.25, -1, 1), **f32)
+        scene.gbv[..., 1:] = torch.tensor(0.5 + 0.45 * np.sin(w), **f32)
+        scene.gbw.fill_(1.0)
+    scene.refresh_gbq()
+    mapper = Mapper(cfg, scene)
+    cam = cfg["cam"]
+    H, W = cam["H"], cam["W"]
+    v, u = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    dirs = np.stack([(u - cam["cx"]) / cam["fx"], (v - cam["cy"]) / cam["fy"],
+                     np.ones_like(u, np.float64)], -1).reshape(-1, 3)
+    dep = rng.uniform(0.8, 2.6, (H, W))
+    dep[rng.random((H, W)) < 0.05] = 0.0  # a few invalid pixels
+    rgb = rng.random((H, W, 3))
+    n_kf, per_kf = 3, 256
+    store = DeviceKeyFrameStore(num_kf, per_kf, cam["depth_trunc"], device)
+    idx = rng.integers(0, H * W, n_kf * per_kf)
+    store.rays[:n_kf * per_kf] = torch.tensor(np.concatenate(
+        [dirs[idx], rgb.reshape(-1, 3)[idx], dep.reshape(-1)[idx, None]],
+        -1), **f32)
+    store.frame_ids = [0, 2, 4]
+    poses = np.tile(np.eye(4), (num_kf, 1, 1))
+    for k in range(num_kf):
+        a = 0.05 * k
+        poses[k, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                            [-np.sin(a), 0, np.cos(a)]]
+        poses[k, :3, 3] = (2.0 + 0.05 * k, 2.0, 0.4)
+    kf_poses = torch.tensor(poses, **f32)
+    for k in range(n_kf + 1):
+        scene.rba.update_init_pose(k, kf_poses[k])
+    sample = cfg["mapping"]["sample"]
+    inputs = dict(kf_store=store, n_kf=n_kf,
+                  dirs_flat=torch.tensor(dirs, **f32),
+                  dep=torch.tensor(dep, **f32), rgb=torch.tensor(rgb, **f32),
+                  kf_poses=kf_poses, cur_kf_id=n_kf,
+                  n_cur=(sample // 4, cfg["mapping"]["min_pixels_cur"]))
+    return mapper, inputs

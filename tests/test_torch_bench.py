@@ -164,6 +164,7 @@ def _run_against_jax(cfg, n, tmp_path, ro_tol=0.1):
     assert res["keyframes"] == keyframes_j
     assert 0.0 <= res["sel_la_hit"] <= 1.0
     assert res["track_graph_hit"] == 0.0  # the CPU runs the loop eagerly
+    assert res["map_graph_hit"] == 0.0  # and the map and BA steps
     return res
 
 

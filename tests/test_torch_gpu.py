@@ -681,3 +681,131 @@ def test_graphed_track_matches_eager_on_card(cuda_device, tmp_path):
         assert torch.equal(rec["copy"][1], res.search_size)
         assert torch.equal(rec["copy"][2], res.origin_value)
         assert rec["res"].first_iter_success == res.first_iter_success
+
+
+# map.grad_rel, map.update_rel of the benchmark's cpgrid.orbit and
+# hashgrid.orbit cells; ba.grad_rel, ba.update_rel of both
+MAP_LIMITS = {"CPGrid": (2.5e-4, 2e-2), "HashGrid": (2e-5, 1.5e-6)}
+BA_LIMITS = (3e-5, 3e-5)
+
+
+def norm_gap(got: dict, want: dict) -> float:
+    """The benchmark's gap (slambench/harness/checks.norm_gap) over the
+    leaves whose `want` norm is at least a thousandth of the median's."""
+    rn = {k: float(torch.linalg.vector_norm(v)) for k, v in want.items()}
+    med = float(np.median(list(rn.values())))
+    worst = 0.0
+    for k, r in rn.items():
+        if r >= 1e-3 * med:
+            p = float(torch.linalg.vector_norm(got[k]))
+            worst = max(worst, abs(p - r) / max(r, med, 1e-30))
+    return worst
+
+
+def sync_state(dst, src):
+    """dst's parameters and both optimizers' states set to src's."""
+    with torch.no_grad():
+        for pd, ps in zip(dst.scene.parameters(), src.scene.parameters()):
+            pd.copy_(ps)
+    for name in ("map_opt", "rba_opt"):
+        od, osrc = getattr(dst, name), getattr(src, name)
+        for gd, gs in zip(od.param_groups, osrc.param_groups):
+            for pd, ps in zip(gd["params"], gs["params"]):
+                st = osrc.state.get(ps)
+                if st:
+                    od.state[pd] = {k: v.clone() for k, v in st.items()}
+
+
+def field_step(mapper, kind, inputs, n_cur, gen):
+    """One map or BA step; (loss, {leaf: grad}, {leaf: parameter after})
+    of the step's optimizer, each a copy."""
+    args = {k: v for k, v in inputs.items() if k != "n_cur"}
+    if kind == "map":
+        loss = mapper.map_step_dev(**args, n_iters=1, n_cur=n_cur,
+                                   generator=gen)
+        opt = mapper.map_opt
+    else:
+        del args["kf_poses"]
+        loss, _ = mapper.ba_step_dev(**args, n_iters=1, n_cur=n_cur,
+                                     generator=gen)
+        opt = mapper.rba_opt
+    params = [p for g in opt.param_groups for p in g["params"]]
+    grads = {i: p.grad.clone() for i, p in enumerate(params)
+             if p.grad is not None}
+    return loss.clone(), grads, {i: p.detach().clone()
+                                 for i, p in enumerate(params)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", ["CPGrid", "HashGrid"])
+def test_graphed_map_and_ba_steps_match_eager_on_card(cuda_device, enc):
+    """12 map and 12 BA steps, interleaved, with their loss bodies served
+    by CUDA graphs, against the same steps run eagerly (twice) from the
+    same parameters, Adam state and generator state; the current frame's
+    budget changes bucket at step 6, so each body kind captures a second
+    key there. Losses, gradients and the parameters' change agree within
+    the benchmark's limits, and bitwise wherever the two eager runs agree
+    bitwise and no float atomic add orders the sums (the losses, the
+    decoders' gradients and update); graph_hit reads 0 on the capturing
+    steps and 1 on the others; hash_table_grad counts every launch,
+    replayed steps' too."""
+    import copy
+
+    from helpers import map_round_state
+    from remixfusion_tpu_torch.ops import hash_enc as he
+
+    base, inputs = map_round_state(enc, cuda_device)
+    graphed = copy.deepcopy(base)
+    eager, eager2 = copy.deepcopy(base), copy.deepcopy(base)
+    eager.scene.graphed = eager2.scene.graphed = False
+    # the map optimizer's decoder leaves, whose gradients no float atomic
+    # adds: the field tables' pass through index_add_ / hash_table_grad,
+    # the RBA network's through index_select's backward
+    n_field = len(base.map_opt.param_groups[0]["params"])
+    exact = range(n_field,
+                  n_field + len(base.map_opt.param_groups[1]["params"]))
+    gen = torch.Generator(cuda_device).manual_seed(2 ** 31 + 77)
+    launches = {"graphed": [], "eager": []}
+    for i in range(12):
+        n_cur = inputs["n_cur"][0 if i < 6 else 1]
+        for kind in ("map", "ba"):
+            grad_lim, update_lim = (MAP_LIMITS[enc] if kind == "map"
+                                    else BA_LIMITS)
+            sync_state(eager, graphed)
+            sync_state(eager2, graphed)
+            before = {i: p.detach().clone() for i, p in enumerate(
+                p for g in (graphed.map_opt if kind == "map"
+                            else graphed.rba_opt).param_groups
+                for p in g["params"])}
+            state = gen.get_state()
+            out = {}
+            for name, m in (("graphed", graphed), ("eager", eager),
+                            ("eager2", eager2)):
+                gen.set_state(state)
+                n0 = he.hash_table_grad.launches
+                out[name] = field_step(m, kind, inputs, n_cur, gen)
+                torch.cuda.synchronize()
+                if name in launches:
+                    launches[name].append(he.hash_table_grad.launches - n0)
+            (lg, gg, pg), (le, ge, pe), (l2, g2, p2) = (
+                out["graphed"], out["eager"], out["eager2"])
+            where = f"{kind} step {i}"
+            if torch.equal(le, l2):
+                assert torch.equal(lg, le), where
+            assert torch.allclose(lg, le, rtol=grad_lim, atol=0), where
+            assert set(gg) == set(ge), where
+            for k in (exact if kind == "map" else ()):
+                if torch.equal(ge[k], g2[k]) and torch.equal(pe[k], p2[k]):
+                    assert torch.equal(gg[k], ge[k]), (where, k)
+                    assert torch.equal(pg[k], pe[k]), (where, k)
+            assert norm_gap(gg, ge) <= grad_lim, where
+            assert norm_gap({k: pg[k] - before[k] for k in ge},
+                            {k: pe[k] - before[k] for k in ge}) \
+                <= update_lim, where
+    per_kind = [0, 1, 1, 1, 1, 1, 0, 1, 1, 1, 1, 1]
+    assert graphed.graph_hit == [h for h in per_kind for _ in range(2)]
+    assert eager.graph_hit == [0] * 24
+    # HashGrid: the map body's and the smoothness's table gradient, one
+    # launch each per map step; BA holds the table
+    per_step = [2, 0] if enc == "HashGrid" else [0, 0]
+    assert launches["graphed"] == launches["eager"] == per_step * 12
