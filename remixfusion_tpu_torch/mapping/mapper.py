@@ -36,7 +36,8 @@ smoothness replay as CUDA graphs (models/scene_rep.py); the sampling, the
 ray transform, the RBA network, zero_grad and Adam stay eager, and every
 step still calls map_loss / ba_loss, _step and the scene's two methods
 through the instance. `graph_hit` records per step whether replays served
-it.
+it: `_step` reads the scene's count (utils/cuda_graphs) since the last
+step.
 """
 
 from __future__ import annotations
@@ -228,22 +229,17 @@ class Mapper:
         return self._weighted_loss(ret, True, draw.get("smooth_u"),
                                    generator)
 
-    def _note_hit(self, before):
-        """Append the step's graph_hit; `before`: the scene's graph_counts
-        when the step began."""
-        calls, replays = self.scene.graph_counts()
-        n = calls - before[0]
-        self.graph_hit.append(int(n > 0 and replays - before[1] == n))
-
     def _step(self, opt, loss):
         """One optimizer step on `loss`, inside the round's map.ba.* spans
-        for the RBA optimizer and map.map.* for the map optimizer."""
+        for the RBA optimizer and map.map.* for the map optimizer; appends
+        the step's graph_hit."""
         pre = "map.ba" if opt is self.rba_opt else "map.map"
         with span(pre + ".backward"):
             opt.zero_grad(set_to_none=True)
             loss.backward()
         with span(pre + ".adam"):
             opt.step()
+        self.graph_hit.append(self.scene.graphs.hit())
         return loss.detach()
 
     # ----------------------------------------------------------- map step
@@ -254,12 +250,10 @@ class Mapper:
         losses [I] (device tensor)."""
         losses = []
         for i in range(ray_batches.shape[0]):
-            before = self.scene.graph_counts()
             with span("map.map.forward"):
                 loss = self.map_loss(ray_batches[i], rays_o_b[i],
                                      rays_d_b[i], generator=generator)
             losses.append(self._step(self.map_opt, loss))
-            self._note_hit(before)
         return torch.stack(losses)
 
     # ---------------------------------------- device-sampled mapping / BA
@@ -302,7 +296,6 @@ class Mapper:
         losses = []
         for i in range(n_iters):
             draw = None if draws is None else draws[i]
-            before = self.scene.graph_counts()
             with span("map.map.sample"):
                 rays, ids = self.sample_batch(
                     kf_store, n_kf, dirs_flat, rgb_flat, depth_flat,
@@ -312,7 +305,6 @@ class Mapper:
             with span("map.map.forward"):
                 loss = self.map_loss(rays, rays_o, rays_d, draw, generator)
             losses.append(self._step(self.map_opt, loss))
-            self._note_hit(before)
         return torch.stack(losses)
 
     def ba_loss(self, rays, ids, draw=None, generator=None):
@@ -340,7 +332,6 @@ class Mapper:
         with frozen(scene.field_parameters() + scene.decoder_parameters()):
             for i in range(n_iters):
                 draw = None if draws is None else draws[i]
-                before = self.scene.graph_counts()
                 with span("map.ba.sample"):
                     rays, ids = self.sample_batch(
                         kf_store, n_kf, dirs_flat, rgb_flat, depth_flat,
@@ -348,7 +339,6 @@ class Mapper:
                 with span("map.ba.forward"):
                     loss = self.ba_loss(rays, ids, draw, generator)
                 losses.append(self._step(self.rba_opt, loss))
-                self._note_hit(before)
         with torch.no_grad():
             poses_all = scene.rba(torch.arange(scene.num_kf,
                                                device=dirs_flat.device))

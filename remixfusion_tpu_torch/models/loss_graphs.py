@@ -31,7 +31,8 @@ its backward: the map and BA bodies share one, the smoothness body, which
 runs inside the map body's window, has its own. One key is kept per body
 kind: a new shape replaces the old one, whose memory goes back to the
 pool. A key's first call warms the body up on the capture stream, forward
-and backward, captures it and replays it; its later calls replay.
+and backward, captures it and replays it; its later calls replay. The
+capture and the count are the scene's utils/cuda_graphs.CudaGraphs.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import contextlib
 import torch
 
 from remixfusion_tpu_torch.ops import hash_enc
+from remixfusion_tpu_torch.utils.cuda_graphs import feed
 
 
 class _Body:
@@ -127,28 +129,18 @@ def _aliased(module, params):
             mod._parameters[name] = p
 
 
-def _feed(fixed, fed):
-    with torch.no_grad():
-        for dst, src in zip(fixed, fed):
-            if dst is not None:
-                dst.copy_(src)
-
-
 class LossGraphs:
-    """A scene's graphed loss bodies on one device. `replays` counts the
-    calls served by replays."""
+    """A scene's graphed loss bodies; `graphs` (utils/cuda_graphs) captures
+    them and counts every call."""
 
     # body kind -> its memory pool's family (see the module docstring)
     FAMILIES = {"map": "losses", "ba": "losses", "smoothness": "smoothness"}
 
-    def __init__(self, module, device):
+    def __init__(self, module, graphs):
         self.module = module  # the scene whose parameters bodies read
-        self.device = device
-        self.stream = torch.cuda.Stream(device)
-        self.pools = {}
+        self.graphs = graphs
         self.bodies = {}   # body kind -> _Body
         self.tails = None  # while a body is traced: its deferred queries
-        self.replays = 0
 
     def defer(self, enc, table, pts):
         """The encoding at pts inside a capture, with the table's gradient
@@ -170,31 +162,28 @@ class LossGraphs:
         deferred (enc its encoding). Returns body's outputs from the
         graphs, overwritten by the kind's next call."""
         entry = self.bodies.get(kind)
-        if entry is not None and entry.key == key:
-            self.replays += 1
-        else:
+        hit = entry is not None and entry.key == key
+        self.graphs.note(hit)
+        if not hit:
             entry = self._capture(kind, key, body, fed, params, table, enc,
                                   n_diff)
-        _feed(entry.fixed, fed)
+        for dst, src in zip(entry.fixed, fed):
+            feed(dst, src)
         args = [p for p in params if p.requires_grad] + [
             x for x in fed if x is not None and x.requires_grad]
         return _Replay.apply(entry, *args)
 
-    def _trace(self, body, fixed, params, table, fwd=None, pool=None):
-        """body's forward, captured into fwd when given, and what its
-        backward differentiates: (outputs, wrt, plan, tails, deferred)."""
+    def _trace(self, body, fixed, params, table, fwd=None, family=None):
+        """body's forward, captured into fwd (in the family's pool) when
+        given, and what its backward differentiates: (outputs, wrt, plan,
+        tails, deferred)."""
         self.tails = []
         with _aliased(self.module, params) as aliases:
-            if fwd is not None:
-                # thread_local: only this thread's unsafe calls end a
-                # capture
-                fwd.capture_begin(pool=pool,
-                                  capture_error_mode="thread_local")
             try:
-                outputs = tuple(body(*fixed))
+                outputs = (tuple(body(*fixed)) if fwd is None else
+                           self.graphs.capture(
+                               fwd, lambda: tuple(body(*fixed)), family))
             finally:
-                if fwd is not None:
-                    fwd.capture_end()
                 tails, self.tails = self.tails, None
         deferred = table if tails else None
         wrt, plan = [], []
@@ -219,17 +208,10 @@ class LossGraphs:
         lazily, outside the capture)."""
         self.bodies.pop(kind, None)  # its memory back to the pool first
         family = self.FAMILIES[kind]
-        if family not in self.pools:
-            with torch.cuda.device(self.device):
-                self.pools[family] = torch.cuda.graph_pool_handle()
-        pool = self.pools[family]
         fixed = [None if x is None else
-                 torch.empty_like(x).requires_grad_(x.requires_grad)
+                 x.detach().clone().requires_grad_(x.requires_grad)
                  for x in fed]
-        _feed(fixed, fed)
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
+        with self.graphs.side_stream():
             outputs, wrt, _, _, _ = self._trace(body, fixed, params, table)
             torch.autograd.grad(outputs[:n_diff], wrt,
                                 [torch.ones_like(o)
@@ -238,17 +220,12 @@ class LossGraphs:
             del outputs, wrt
             fwd = torch.cuda.CUDAGraph()
             outputs, wrt, plan, tails, deferred = self._trace(
-                body, fixed, params, table, fwd, pool)
+                body, fixed, params, table, fwd, family)
             entry = _Body(key, fwd, fixed, outputs, n_diff, plan, tails,
                           deferred, enc)
-            entry.bwd.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-            try:
-                entry.grads = torch.autograd.grad(
+            entry.grads = self.graphs.capture(
+                entry.bwd, lambda: torch.autograd.grad(
                     outputs[:n_diff], wrt, entry.grad_outs,
-                    retain_graph=True, allow_unused=True)
-            finally:
-                entry.bwd.capture_end()
-        cur.wait_stream(self.stream)
+                    retain_graph=True, allow_unused=True), family)
         self.bodies[kind] = entry
         return entry

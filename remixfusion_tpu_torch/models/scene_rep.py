@@ -35,9 +35,9 @@ backward, replay as CUDA graphs (models/loss_graphs.py) wherever a graph
 can serve: the scene holds its grid, grad is enabled and something takes a
 gradient, no count_reduce (the sharded step's collectives), and not both
 the rays and a hash table at once. Their draws stay eager and come first,
-in the eager body's order. Elsewhere the same bodies run eagerly.
-`graph_counts` gives the calls of both methods and those served by
-replays.
+in the eager body's order. Elsewhere the same bodies run eagerly. Every
+call of both methods is counted in `graphs` (utils/cuda_graphs), with
+whether a replay served it.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from remixfusion_tpu_torch.models.encodings import HashGridEncoding, \
     get_encoder
 from remixfusion_tpu_torch.models.loss_graphs import LossGraphs
 from remixfusion_tpu_torch.models.rba import RBA
+from remixfusion_tpu_torch.utils.cuda_graphs import CudaGraphs
 
 
 # corner k of a trilinear cell: (dx, dy, dz) = 000, 001, .., 111
@@ -131,11 +132,10 @@ class SceneRepresentation(nn.Module):
         with torch.no_grad():
             self.decoder_res.reset_parameters(generator)
             self.rba.reset_parameters(generator)
-        # the loss bodies replay as CUDA graphs where one can serve (None
-        # until the first such call); graph_counts' call counter
+        # the loss bodies replay as CUDA graphs where one can serve
         self.graphed = grid_rows is None
-        self._graphs = None
-        self._body_calls = 0
+        self.graphs = CudaGraphs(self.bound_box.device)
+        self._losses = LossGraphs(self, self.graphs)
 
     # --------------------------------------------------- parameter groups
 
@@ -161,9 +161,8 @@ class SceneRepresentation(nn.Module):
         loss body's graph capture a hash table's gradient is deferred to
         its eager kernel (LossGraphs.defer)."""
         table = self._table()
-        if self._graphs is not None and isinstance(
-                self.embed_res_fn, HashGridEncoding):
-            leaf = self._graphs.defer(self.embed_res_fn, table, pts)
+        if isinstance(self.embed_res_fn, HashGridEncoding):
+            leaf = self._losses.defer(self.embed_res_fn, table, pts)
             if leaf is not None:
                 return leaf
         return self.embed_res_fn(table, pts)
@@ -377,21 +376,22 @@ class SceneRepresentation(nn.Module):
 
     # ------------------------------------------------------- CUDA graphs
 
-    def _loss_graphs(self, params, rays=()):
+    def _loss_graphs(self, params, rays=(), count_reduce=None):
         """The scene's LossGraphs where a graph can serve a loss body that
-        reads `params` at `rays`, else None."""
-        if not (self.graphed and self.bound_box.is_cuda
-                and torch.is_grad_enabled()):
-            return None
+        reads `params` at `rays` (with no count_reduce: a sharded step's
+        collectives); else None, and the call is counted as eager."""
         ray_grad = any(r.requires_grad for r in rays)
-        if not (ray_grad or any(p.requires_grad for p in params)):
-            return None
-        if (ray_grad and isinstance(self.embed_res_fn, HashGridEncoding)
+        ok = (self.graphed and self.bound_box.is_cuda
+              and torch.is_grad_enabled() and count_reduce is None
+              and (ray_grad or any(p.requires_grad for p in params)))
+        if (ok and ray_grad and isinstance(self.embed_res_fn,
+                                           HashGridEncoding)
                 and self.hash_table.requires_grad):
-            return None  # its table gradient could not stay eager
-        if self._graphs is None:
-            self._graphs = LossGraphs(self, self.bound_box.device)
-        return self._graphs
+            ok = False  # its table gradient could not stay eager
+        if not ok:
+            self.graphs.note(False)
+            return None
+        return self._losses
 
     def _graph_key(self, kind, fed, params, *static):
         """A body's graph key: its kind and static arguments, the fed
@@ -404,12 +404,6 @@ class SceneRepresentation(nn.Module):
                 tuple((p.data_ptr(), p.requires_grad) for p in params),
                 tuple(g.data_ptr() for g in (self.gbq, self.gbv)
                       if g is not None))
-
-    def graph_counts(self):
-        """(calls of mapping_losses and smoothness, of them the calls
-        served by CUDA-graph replays)."""
-        return (self._body_calls,
-                0 if self._graphs is None else self._graphs.replays)
 
     # ------------------------------------------------------------- losses
 
@@ -425,10 +419,8 @@ class SceneRepresentation(nn.Module):
         the masked means divide by the whole batch's counts. Served by CUDA
         graphs, the returned tensors are overwritten by the next call of
         the same kind (map or, with clamp, BA)."""
-        self._body_calls += 1
         params = self.field_parameters() + self.decoder_parameters()
-        graphs = (None if count_reduce is not None
-                  else self._loss_graphs(params, (rays_o, rays_d)))
+        graphs = self._loss_graphs(params, (rays_o, rays_d), count_reduce)
         if graphs is None:
             return self._mapping_losses(rays_o, rays_d, target_rgb, target_d,
                                         clamp, u, generator, count_reduce)
@@ -529,7 +521,6 @@ class SceneRepresentation(nn.Module):
                    u=None, generator=None):
         """TV smoothness of the residual embedding over a random sub-grid
         (reference mp_slam/slam.py:193-217)."""
-        self._body_calls += 1
         params = self.field_parameters()
         graphs = self._loss_graphs(params)
         if graphs is None:

@@ -40,16 +40,16 @@ tracker read candidate scores back every iteration too (ROtracker.py:
 selects one by its success on the device (_step), so the host only keeps
 the tier bookkeeping.
 
-On a CUDA device with eval_mode 'pallas' and no process group, an
-iteration's chains of small ops replay as CUDA graphs (_Graphs): the
-frame's vertex and normal maps (sample_range 0), a tier's kernel inputs
-(one graph per level) and the transform step (one per tier class and EMA
-flag). The brick_eval launch stays outside them, called through this
-module's name. A graph is captured at its key's first call, which runs its
-ops eagerly; later calls copy what changed into its fixed inputs and
-replay it, the same kernels on the same values, so the bits do not change.
-Everywhere else the same bodies run eagerly. `graph_hit` records per
-iteration 1 when it was served by replays, else 0.
+A track call keeps its state in fixed tensors (_Fixed) and runs its chains
+of small ops through utils/cuda_graphs: the frame's vertex and normal maps
+(sample_range 0), a tier's kernel inputs (one key per level) and the
+transform step (one per tier class and EMA flag). On a CUDA device with
+eval_mode 'pallas' and no process group (`graphed`) a key's first call
+runs its ops eagerly and captures them, later calls copy what changed into
+the fixed inputs and replay them: the same kernels on the same values.
+Elsewhere the chains run eagerly. The brick_eval launch stays outside
+them, called through this module's name. `graph_hit` records per
+iteration 1 when replays served its chains, else 0.
 
 Candidate sharding (the counterpart of JAX's ROTracker(mesh=...)): with a
 process group of D ranks, rank r scores the candidate columns
@@ -76,6 +76,7 @@ from remixfusion_tpu_torch.ops.brick_eval import (BRICK_SIDE,
 from remixfusion_tpu_torch.ops.tsdf import bm_vox_flat, window_index
 from remixfusion_tpu_torch.parallel.launch import collectives
 from remixfusion_tpu_torch.tracking import pst as pst_mod
+from remixfusion_tpu_torch.utils.cuda_graphs import CudaGraphs, feed
 from remixfusion_tpu_torch.utils.spans import span
 
 EVAL_MODES = ("gather", "brick", "pallas")
@@ -123,27 +124,17 @@ def check_modes(cfg):
         raise ValueError(f"unknown volume.track_dtype {dt!r}")
 
 
-def _feed(dst: torch.Tensor, src: torch.Tensor):
-    """Copy src into a graph's fixed input dst unless src is dst."""
-    if src is not dst:
-        dst.copy_(src)
-
-
-class _Graphs:
-    """A tracker's CUDA graphs and the fixed tensors they read and write.
-
-    What outlives a replay lives in these tensors, allocated outside the
-    graphs' shared memory pool: the pose R [3, 3] / T [3], the search
-    sizes ss / prev_ss [6], origin [3], the depth [H, W] and its vertex /
-    normal maps, and per tier class the table slab [C, 6] and the costs
-    [C], per level the subgrid's rows and columns. A graph's own outputs
-    are read before any other graph replays, so the graphs may replay in
-    any order."""
+class _Fixed:
+    """A track call's state, which its chains (replayed or eager) read and
+    write in place, allocated outside the graphs' memory pool: the pose R
+    [3, 3] / T [3], the search sizes ss / prev_ss [6], origin [3], the
+    depth [H, W] and its vertex / normal maps, per tier class the table
+    slab [C, 6] and the costs [C], per level the subgrid's rows and
+    columns. A graph's own outputs are read before any other graph
+    replays, so the graphs may replay in any order."""
 
     def __init__(self, tr: "ROTracker"):
-        dev = tr.device
-        f32 = {"dtype": torch.float32, "device": dev}
-        self.device = dev
+        f32 = {"dtype": torch.float32, "device": tr.device}
         self.R = torch.zeros((3, 3), **f32)
         self.T = torch.zeros(3, **f32)
         self.ss = torch.zeros(6, **f32)
@@ -155,36 +146,9 @@ class _Graphs:
         self.table = {c: torch.zeros_like(tr.pst[c][0]) for c in range(3)}
         self.value = {c: torch.zeros(tr.pst[c].shape[1], **f32)
                       for c in range(3)}
-        self.subgrid = {}  # level -> int64 [rows + cols]
-        with torch.cuda.device(dev):
-            self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(dev)
-        self.graphs = {}  # key -> (CUDAGraph, its outputs)
-        self.captured = False  # a capture since the flag was cleared
-
-    def run(self, key, fn):
-        """fn()'s outputs: its graph replayed, or at the key's first call
-        fn run eagerly (which also warms it up) and then captured."""
-        hit = self.graphs.get(key)
-        if hit is not None:
-            hit[0].replay()
-            return hit[1]
-        out = fn()
-        graph = torch.cuda.CUDAGraph()
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            # thread_local: only this thread's unsafe calls end a capture
-            graph.capture_begin(pool=self.pool,
-                                capture_error_mode="thread_local")
-            try:
-                captured = fn()
-            finally:
-                graph.capture_end()
-        cur.wait_stream(self.stream)
-        self.graphs[key] = (graph, captured)
-        self.captured = True
-        return out
+        self.subgrid = {lv: torch.zeros(tr.H // sr + tr.W // sc,
+                                        dtype=torch.int64, device=tr.device)
+                        for lv, (sr, sc) in tr.tier_strides.items()}
 
 
 class ROTracker:
@@ -286,7 +250,8 @@ class ROTracker:
         # inside it needs the host: the kernel's path, one process
         self.graphed = (dev.type == "cuda" and self.eval_mode == "pallas"
                         and self.comm is None)
-        self._graphs = _Graphs(self) if self.graphed else None
+        self._fixed = _Fixed(self)
+        self._graphs = CudaGraphs(dev)
         # per iteration: 1 when served by graph replays, 0 when run
         # eagerly or captured
         self.graph_hit = []
@@ -660,15 +625,11 @@ class ROTracker:
         """Cost [C] of every candidate of tier `cls`'s table slab in the
         tracker's eval_mode; vol: the volume as track() reads it. With a
         group this rank scores its columns and the costs are gathered.
-        When graphed, the kernel's inputs come from a graph replay (the
-        brick_eval launch is eager) and the costs are a fresh tensor."""
+        The kernel's inputs come from _run_inputs (the brick_eval launch is
+        eager); the costs are a fresh tensor."""
         if self.eval_mode == "pallas":
-            if self.graphed:
-                params, pix, base = self._graphed_inputs(
-                    level, level_index, R, T, ss, vn, origin)
-            else:
-                params, pix, base = self.tier_inputs(level, level_index, R,
-                                                     T, ss, vn, origin)
+            params, pix, base = self._run_inputs(level, level_index, R, T,
+                                                 ss, vn, origin)
             value = brick_eval_volume(params, pix, base, vol,
                                       self.brick_layout,
                                       self.pst_t_rank[cls][slab],
@@ -686,57 +647,56 @@ class ROTracker:
             value = value[1:]
         return self.comm.all_gather_cat(value)
 
-    # ------------------------------------------------------- CUDA graphs
+    # ----------------------------------------- chains through the graphs
 
-    def _graphed_inputs(self, level, level_index, R, T, ss, vn, origin):
-        """tier_inputs from the level's graph: the arguments are fed into
-        its fixed inputs (track passes those themselves), the subgrid of
-        level_index is copied in; the outputs are overwritten by the
-        level's next replay."""
-        g = self._graphs
-        for dst, src in ((g.R, R), (g.T, T), (g.ss, ss), (g.origin, origin),
-                         *zip(g.vn, vn)):
-            _feed(dst, src)
-        sub = self._subgrid(level, level_index)
-        if level not in g.subgrid:
-            g.subgrid[level] = torch.empty_like(sub)
-        fixed = g.subgrid[level]
-        fixed.copy_(sub)
-        return g.run(("inputs", level), lambda: self._inputs_at(
-            *self._split(fixed, level), g.R, g.T, g.ss, g.vn, g.origin))
+    def _run_inputs(self, level, level_index, R, T, ss, vn, origin):
+        """tier_inputs from the level's chain: the arguments are fed into
+        the fixed tensors (track passes those themselves), the subgrid of
+        level_index is copied in; graphed, the outputs are overwritten by
+        the level's next call."""
+        f = self._fixed
+        for dst, src in ((f.R, R), (f.T, T), (f.ss, ss), (f.origin, origin),
+                         *zip(f.vn, vn)):
+            feed(dst, src)
+        fixed = f.subgrid[level]
+        fixed.copy_(self._subgrid(level, level_index))
+        return self._graphs.run(("inputs", level), lambda: self._inputs_at(
+            *self._split(fixed, level), f.R, f.T, f.ss, f.vn, f.origin),
+            self.graphed)
 
-    def _graphed_vn(self, depth, sample, generator):
-        """The frame's vertex and normal maps in the graphs' fixed maps:
-        from a graph with sample_range 0, else computed and copied in."""
-        g = self._graphs
+    def _run_vn(self, depth, sample, generator):
+        """The frame's vertex and normal maps in the fixed maps: from their
+        chain with sample_range 0, else computed and copied in."""
+        f = self._fixed
 
         def fill(maps):
-            for dst, src in zip(g.vn, maps):
+            for dst, src in zip(f.vn, maps):
                 dst.copy_(src)
 
         if self.sample_range != 0.0:
             fill(self.vertex_normal_maps(depth, sample, generator))
         else:
-            _feed(g.depth, depth)
-            g.run(("vn",), lambda: fill(self.vertex_normal_maps(g.depth)))
-        return g.vn
+            feed(f.depth, depth)
+            self._graphs.run(("vn",), lambda: fill(
+                self.vertex_normal_maps(f.depth)), self.graphed)
+        return f.vn
 
-    def _graphed_step(self, value, cls, slab, ema_flag: bool):
-        """_step in the tier class's graph on the fixed pose and search
-        sizes, which it updates in place; the success flag [] is
-        overwritten by the next replay."""
-        g = self._graphs
-        _feed(g.value[cls], value)
-        g.table[cls].copy_(self.pst[cls][slab])
+    def _run_step(self, value, cls, slab, ema_flag: bool):
+        """_step in the tier class's chain on the fixed pose and search
+        sizes, which it updates in place; graphed, the success flag [] is
+        overwritten by the next call."""
+        f = self._fixed
+        feed(f.value[cls], value)
+        f.table[cls].copy_(self.pst[cls][slab])
 
         def step():
-            success, *new = self._step(g.value[cls], g.table[cls], g.R, g.T,
-                                       g.ss, g.prev_ss, ema_flag)
-            for dst, src in zip((g.R, g.T, g.ss, g.prev_ss), new):
-                _feed(dst, src)
+            success, *new = self._step(f.value[cls], f.table[cls], f.R, f.T,
+                                       f.ss, f.prev_ss, ema_flag)
+            for dst, src in zip((f.R, f.T, f.ss, f.prev_ss), new):
+                feed(dst, src)
             return success
 
-        return g.run(("step", cls, ema_flag), step)
+        return self._graphs.run(("step", cls, ema_flag), step, self.graphed)
 
     def track_view(self, tsdf):
         """The volume as track() reads it: [NB, b^3] float32 for the kernel
@@ -827,23 +787,16 @@ class ROTracker:
         is read back per iteration (the tier choice needs it on the
         host). The result's tensors are the caller's: no later call
         writes them."""
-        g = self._graphs if self.graphed else None
-        if g is None:
-            R = c2w_init[:3, :3].clone()
-            T = c2w_init[:3, 3].clone()
-            ss = self.init_search_size() if ss_init is None else ss_init
-            prev_ss = torch.zeros(6, dtype=torch.float32, device=self.device)
+        f = self._fixed
+        feed(f.origin, origin)
+        R, T, ss, origin = f.R, f.T, f.ss, f.origin
+        R.copy_(c2w_init[:3, :3])
+        T.copy_(c2w_init[:3, 3])
+        if ss_init is None:
+            ss.fill_(self.init_size)
         else:
-            R, T, ss, prev_ss = g.R, g.T, g.ss, g.prev_ss
-            R.copy_(c2w_init[:3, :3])
-            T.copy_(c2w_init[:3, 3])
-            if ss_init is None:
-                ss.fill_(self.init_size)
-            else:
-                ss.copy_(ss_init)
-            prev_ss.zero_()
-            _feed(g.origin, origin)
-            origin = g.origin
+            ss.copy_(ss_init)
+        f.prev_ss.zero_()
         count, level_index = 0, 5
         ema_flag, first_ok = False, False
         count_cap = min(self.particle_iter_lens - 1, 19)
@@ -852,27 +805,16 @@ class ROTracker:
                 and self.sample_range != 0.0):
             self.comm.sync_generator(generator)
         with span("slice.track.vn"):
-            if g is None:
-                vn = self.vertex_normal_maps(depth, sample, generator)
-            else:
-                vn = self._graphed_vn(depth, sample, generator)
+            vn = self._run_vn(depth, sample, generator)
             vol = self.track_view(tsdf)
         for i in range(self.particle_iter_lens):
             with span("slice.track.score"):
-                if g is not None:
-                    g.captured = False
                 cls = count % 3
                 slab = self.slab_table[count]
                 level = self.class_level[cls]
                 value = self.score_tier(cls, slab, level, level_index, R, T,
                                         ss, vn, vol, origin)
-                if g is None:
-                    success_t, R, T, ss, prev_ss = self._step(
-                        value, self.pst[cls][slab], R, T, ss, prev_ss,
-                        ema_flag)
-                else:
-                    success_t = self._graphed_step(value, cls, slab,
-                                                   ema_flag)
+                success_t = self._run_step(value, cls, slab, ema_flag)
             with span("slice.track.readback"):
                 success = bool(success_t)  # the one readback per iteration
             with span("slice.track.update"):
@@ -888,12 +830,11 @@ class ROTracker:
                     first_ok = success
                 if not success:
                     count = 0
-                self.graph_hit.append(int(g is not None and not g.captured))
+                self.graph_hit.append(self._graphs.hit())
         c2w = torch.eye(4, dtype=torch.float32, device=self.device)
         c2w[:3, :3] = R
         c2w[:3, 3] = T
-        return TrackResult(c2w, ss if g is None else ss.clone(), first_ok,
-                           origin_val)
+        return TrackResult(c2w, ss.clone(), first_ok, origin_val)
 
     def init_search_size(self) -> torch.Tensor:
         return torch.full((6,), self.init_size, dtype=torch.float32,

@@ -22,6 +22,7 @@ import bench_torch
 from helpers import tiny_config
 from remixfusion_tpu.config import load_config as jax_load_config
 from remixfusion_tpu.tools.eval_ate import evaluate_ate
+from torch_env import child_env
 
 torch.set_num_threads(1)
 
@@ -243,8 +244,8 @@ def test_cli_runs_without_jax_or_pyyaml(tmp_path):
     BENCH_WARMUP 2: the last stdout line holds bench.py's four keys with
     the device named; the mesh and ATE lines are on stderr; the outputs
     land in output/bench_torch/tiny under the working directory."""
-    env = dict(os.environ, PYTHONPATH=ROOT, BENCH_FRAMES="8",
-               BENCH_WARMUP="2", BENCH_CWD=str(tmp_path))
+    env = child_env(PYTHONPATH=ROOT, BENCH_FRAMES="8", BENCH_WARMUP="2",
+                    BENCH_CWD=str(tmp_path))
     out = _guarded(["--config", _tiny_yaml(tmp_path), "--device", "cpu"],
                    env)
     assert out.returncode == 0, out.stderr[-4000:]
@@ -273,8 +274,8 @@ def test_cli_fails_without_a_card(tmp_path):
     why (no fallback to the CPU)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
-    env = dict(os.environ, PYTHONPATH=ROOT, BENCH_FRAMES="8",
-               BENCH_WARMUP="2", BENCH_CWD=str(tmp_path))
+    env = child_env(PYTHONPATH=ROOT, BENCH_FRAMES="8", BENCH_WARMUP="2",
+                    BENCH_CWD=str(tmp_path))
     out = _guarded(["--config", _tiny_yaml(tmp_path)], env)
     assert out.returncode != 0
     assert "CUDA device" in out.stderr and "device='cpu'" in out.stderr

@@ -16,6 +16,7 @@ import yaml
 
 from remixfusion_tpu.config import load_config as jax_load_config
 from remixfusion_tpu_torch.config import load_config, parse_yaml
+from torch_env import child_env
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, ROOT) for p in
@@ -120,7 +121,7 @@ def test_port_runs_without_jax_or_pyyaml():
         "cfg = load_config('configs/Synthetic/synthetic_bench.yaml')\n"
         "assert cfg['RO']['eval_mode'] == 'pallas'\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = child_env(PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

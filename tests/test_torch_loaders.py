@@ -33,6 +33,7 @@ from remixfusion_tpu_torch.datasets.base import update_cam  # noqa: E402
 from remixfusion_tpu_torch.tools import check_data, preprocess  # noqa
 from remixfusion_tpu_torch.utils import imageio  # noqa: E402
 from test_loaders import H, W, cam_cfg, write_frame  # noqa: E402
+from torch_env import child_env  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TUM_DIST = [0.2624, -0.9531, -0.0054, 0.0026, 1.1633]
@@ -190,7 +191,7 @@ def test_jpeg_reads_through_cv2_and_needs_it(tmp_path):
             "except ImportError as e:\n"
             "    print('ImportError', e)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         env=child_env(PYTHONPATH=ROOT),
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.startswith("ImportError") and jpg in out.stdout, (
         out.stdout, out.stderr)
@@ -468,7 +469,7 @@ def test_png_layout_loads_without_cv2(tmp_path):
             f"print(np.array_equal(got, np.load({str(tmp_path)!r}"
             " + '/want.npy')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         env=child_env(PYTHONPATH=ROOT),
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.strip() == "True", out.stderr
 

@@ -56,7 +56,8 @@ def test_steps_run_eagerly_on_cpu(enc):
     mapper.ba_step_dev(**_round_inputs(inputs, ba=True), n_iters=2,
                        n_cur=n_cur, generator=gen)
     assert mapper.graph_hit == [0, 0, 0, 0]
-    assert mapper.scene.graph_counts() == (6, 0)
+    counts = mapper.scene.graphs
+    assert (counts.calls, counts.replays) == (6, 0)
 
 
 @pytest.mark.parametrize("enc", ["CPGrid", "HashGrid"])

@@ -22,6 +22,7 @@ from helpers import tiny_config
 from remixfusion_tpu_torch.core.pose import const_speed_np
 from remixfusion_tpu_torch.slam import RemixFusionTorch
 from remixfusion_tpu_torch.tracking.volume import MovingVolume
+from torch_env import child_env
 
 torch.set_num_threads(1)
 
@@ -332,7 +333,7 @@ def test_run_torch_resume_cli(saved, tmp_path):
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "run_torch.py"), "--config",
          path, "--resume", saved["path"], "--device", "cpu"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        cwd=ROOT, env=child_env(PYTHONPATH=ROOT),
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert f"first_tracked={SAVE_AT + 1}" in out.stdout, out.stdout

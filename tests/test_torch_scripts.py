@@ -23,6 +23,7 @@ import yaml
 from helpers import tiny_config
 from remixfusion_tpu_torch.slam import RemixFusionTorch
 from remixfusion_tpu_torch.tools.eval_ate import evaluate_ate
+from torch_env import child_env
 
 torch.set_num_threads(1)
 
@@ -36,7 +37,7 @@ _HELP = {}
 
 
 def _env():
-    return dict(os.environ, PYTHONPATH=ROOT)
+    return child_env(PYTHONPATH=ROOT)
 
 
 def _commands(text):

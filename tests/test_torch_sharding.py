@@ -69,6 +69,7 @@ from remixfusion_tpu_torch.parallel.launch import spawn
 from remixfusion_tpu_torch.tracking.rotracker import ROTracker
 from remixfusion_tpu_torch.utils.convert import volume_state_from_numpy
 from test_sharding import BOUND, _scene_and_data
+from torch_env import one_thread_children
 
 torch.set_num_threads(1)
 WORLD_TIMEOUT_S = 240
@@ -154,6 +155,13 @@ def _inputs():
 def _rank_inputs(inp):
     return {k: v for k, v in inp.items() if not k.startswith("jax_")
             and k != "ds"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread_ranks():
+    """Every rank this module spawns starts with one thread."""
+    with one_thread_children():
+        yield
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=lambda d: f"D{d}")

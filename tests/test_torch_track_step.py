@@ -183,6 +183,22 @@ def test_track_matches_host_branched_loop(case):
         assert torch.equal(res.c2w, c2w)
 
 
+def test_track_result_belongs_to_the_caller():
+    """track keeps a call's pose and search sizes in fixed tensors that the
+    next call overwrites; the TrackResult it returned holds none of them,
+    so a later call leaves it as it was."""
+    iters, iterative_scale, plan = PLANS["mixed"]
+    tr = _tracker(iters, iterative_scale)
+    res, _ = _scripted_track(tr, _pose(7), plan, 11)
+    kept = [t.clone() for t in (res.c2w, res.search_size, res.origin_value)]
+    later, _ = _scripted_track(tr, _pose(8), PLANS["no_ema"][2], 12)
+    assert not torch.equal(later.c2w, kept[0])
+    assert not torch.equal(later.search_size, kept[1])
+    for got, want in zip((res.c2w, res.search_size, res.origin_value),
+                         kept):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("success", [True, False])
 @pytest.mark.parametrize("ema_flag", [True, False])
 def test_step_matches_host_branches(success, ema_flag):
